@@ -7,9 +7,13 @@ Builds the hand-written kernels of ``sparkrdma_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card,
 drives the port's main paths at full size through their user entry
 points (TeraSort 8 B and 100 B records, the two-phase block sort
-engine, WordCount and aggregateByKey over Zipf keys), checks every
-result against an independent torch oracle, and shows through the
-launch counters that the main paths ran the kernels.
+engine, WordCount and aggregateByKey over Zipf keys, and causal
+sequence-parallel attention through ``ring_attention`` and
+``ulysses_attention`` on a group of one, 8 heads x 8192 and x 32768,
+d_head 128, bfloat16), checks every result against an independent
+torch oracle, and shows through the launch counters that the main
+paths ran the kernels.  float32 matrix products run without TF32
+throughout, so the plain versions and oracles are full float32.
 
 Each phase prints one JSON line with its times (CUDA events) and the
 card's name and power limit.  Then one line lists the kernels, one line
@@ -22,6 +26,7 @@ package.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import subprocess
@@ -42,6 +47,28 @@ SCAN_RAGGED_N = 3_000_017
 # average 1000 values of magnitude <= 1, so the two sums differ by far
 # less than this
 F32_ADD_ATOL = 1e-3
+TENSOR_OPS_PER_S = 989e12   # bf16 dense tensor-core rate, H100 SXM
+ATTN_N = 8                  # benchmarks/bench_attention.py: H = 8,
+ATTN_S = 8192               # S = 8192, d_head = 128, bf16, causal
+ATTN_D = 128
+ATTN_LONG_S = 32768         # long context on one card
+ORACLE_ROWS = 4096          # q rows per chunk of the attention oracle
+NEG_INF = -1e30
+# Kernel 3 against its plain version (both on the card):
+# - m: float32 sums of d products in another order: atol and rtol 1e-5;
+#   rows masked throughout must be NEG_INF exactly;
+# - l: the kernel's fast exponential and order of summation: rtol 1e-4;
+# - o: float32 within 1e-4 of its largest magnitude; bfloat16 within
+#   2^-7 of it, since the kernel rounds p to bfloat16 against the running
+#   max of each 64-key tile and the plain version against the row max
+#   (one bfloat16 rounding, 2^-9 relative, per term of the sum).
+ATTN_M_TOL = 1e-5
+ATTN_L_RTOL = 1e-4
+ATTN_O_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# Attention outputs in bfloat16 against the float32 oracle (or each
+# other): the output's own rounding (2^-9 relative) plus p's rounding
+# before p . v (2^-9 per term).
+ATTN_OUT_TOL = dict(rtol=1e-2, atol=1e-2)
 
 CARD = {}
 
@@ -444,6 +471,207 @@ def phase_keyed(torch, models, base, _build, gen, dev):
     return launches
 
 
+def _randn(torch, shape, dtype, gen, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _check_partials(torch, got, want, dtype, what):
+    """Kernel 3's partials against its plain version's (tolerances at
+    ATTN_M_TOL); returns the largest error of m, l (relative) and o."""
+    (m, l, o), (wm, wl, wo) = got, want
+    masked = wm == NEG_INF
+    require(torch.equal(m[masked], wm[masked]),
+            f"{what}: masked rows' m is not NEG_INF")
+    m_err = float((m - wm)[~masked].abs().max()) if (~masked).any() else 0.0
+    m_lim = ATTN_M_TOL * (1 + float(wm[~masked].abs().max())) \
+        if (~masked).any() else 0.0
+    require(m_err <= m_lim, f"{what}: m differs by {m_err}")
+    l_err = float(((l - wl).abs() / wl.abs()).max())
+    require(l_err <= ATTN_L_RTOL, f"{what}: l differs by {l_err} (rel)")
+    o_err = float((o - wo).abs().max())
+    o_lim = ATTN_O_TOL[dtype] * float(wo.abs().max())
+    require(o_err <= o_lim, f"{what}: o differs by {o_err} > {o_lim}")
+    return m_err, l_err, o_err, o_lim
+
+
+def phase_attention_check(torch, attn, gen, dev):
+    """Kernel 3 against its plain version: dtypes, d_head, causal, a
+    ragged shape, rows masked fully and partly."""
+    worst = 0.0
+    cases = [(dt, d, causal, n, s_q, s_k, qo, ko)
+             for dt in ("bfloat16", "float32") for d in (64, 128)
+             for causal in (False, True)
+             for n, s_q, s_k, qo, ko in ((4, 2048, 2048, 0, 0),
+                                         (3, 1000, 1500, 500, 0))]
+    cases += [(dt, 128, True, 3, 1000, 1500, qo, ko)
+              for dt in ("bfloat16", "float32")
+              for qo, ko in ((0, 1000), (0, 300))]
+    for dt, d, causal, n, s_q, s_k, qo, ko in cases:
+        dtype = getattr(torch, dt)
+        q = _randn(torch, (n, s_q, d), dtype, gen, dev)
+        k = _randn(torch, (n, s_k, d), dtype, gen, dev)
+        v = _randn(torch, (n, s_k, d), dtype, gen, dev)
+        got = attn.block_attention(q, k, v, qo, ko, causal)
+        want = attn.block_attention_plain(q, k, v, qo, ko, causal,
+                                          1.0 / math.sqrt(d))
+        torch.cuda.synchronize()
+        what = f"attention {dt} d={d} causal={causal} {n}x{s_q}x{s_k} " \
+               f"offsets {qo},{ko}"
+        if causal and qo + s_q <= ko:  # every row masked throughout
+            require(bool((got[0] == NEG_INF).all())
+                    and bool((got[1] == s_k).all()),
+                    f"{what}: fully masked rows need m == NEG_INF, l == s_k")
+        m_err, l_err, o_err, o_lim = _check_partials(torch, got, want, dt,
+                                                     what)
+        worst = max(worst, o_err)
+        phase("attention_check", dtype=dt, d_head=d, causal=causal, n=n,
+              s_q=s_q, s_k=s_k, q_offset=qo, k_offset=ko, tf32=False,
+              m_err=m_err, l_rel_err=l_err, o_err=o_err, o_tol=o_lim)
+    return worst
+
+
+def _attention_bound(n, s, d, itemsize):
+    """Least time of kernel 3 at offsets 0, causal: 4 d operations per
+    unmasked (row, key) pair at the tensor-core rate, against q, k, v
+    read once and m, l, o (float32) written once."""
+    ops = 4 * d * n * (s * (s + 1) // 2)
+    n_bytes = 3 * n * s * d * itemsize + 2 * n * s * 4 + n * s * d * 4
+    t_ops = ops / TENSOR_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_attention_time(torch, attn, gen, dev):
+    """Kernel 3 at the bench shape, with its plain version and SDPA."""
+    shape = (ATTN_N, ATTN_S, ATTN_D)
+    q, k, v = (_randn(torch, shape, torch.bfloat16, gen, dev)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(ATTN_D)
+    got = attn.block_attention(q, k, v, 0, 0, True)
+    want = attn.block_attention_plain(q, k, v, 0, 0, True, scale)
+    _m, _l, err, _lim = _check_partials(torch, got, want, "bfloat16",
+                                        "attention at the bench shape")
+    del got, want
+    ms = cuda_ms(lambda: attn.block_attention(q, k, v, 0, 0, True),
+                 iters=10)
+    plain = cuda_ms(lambda: attn.block_attention_plain(
+        q, k, v, 0, 0, True, scale), iters=2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_ms(lambda: sdpa(q[None], k[None], v[None], is_causal=True),
+                  iters=10)
+    b_ms, b_by = _attention_bound(ATTN_N, ATTN_S, ATTN_D, 2)
+    unmasked = 4 * ATTN_D * ATTN_N * (ATTN_S * (ATTN_S + 1) // 2)
+    phase("attention_time", n=ATTN_N, seq=ATTN_S, d_head=ATTN_D,
+          dtype="bfloat16", causal=True, ms=ms, plain_ms=plain,
+          library_ms=lib, library="scaled_dot_product_attention "
+          "(normalises)", bound_ms=b_ms, bound_by=b_by,
+          unmasked_tflop_per_s=unmasked / ms / 1e9, max_abs_err=err)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _attention_oracle_err(torch, q, k, v, out):
+    """Largest error of ``out`` against causal softmax attention in
+    float32 (per head, ORACLE_ROWS query rows at a time); fails past
+    ATTN_OUT_TOL."""
+    n, s, d = q.shape
+    worst = 0.0
+    for h in range(n):
+        for r0 in range(0, s, ORACLE_ROWS):
+            r1 = min(s, r0 + ORACLE_ROWS)
+            kk, vv = k[h, :r1].float(), v[h, :r1].float()
+            sc = torch.matmul(q[h, r0:r1].float(), kk.T) / math.sqrt(d)
+            rows = torch.arange(r0, r1, device=q.device)[:, None]
+            cols = torch.arange(r1, device=q.device)[None, :]
+            sc.masked_fill_(cols > rows, float("-inf"))
+            ref = torch.matmul(torch.softmax(sc, dim=-1), vv)
+            got = out[h, r0:r1].float()
+            require(torch.allclose(got, ref, **ATTN_OUT_TOL),
+                    f"attention differs from the oracle (head {h}, rows "
+                    f"{r0}:{r1})")
+            worst = max(worst, float((got - ref).abs().max()))
+    return worst
+
+
+def phase_ring(torch, ring_mod, _build, gen, dev):
+    """The main path: ``ring_attention`` on a group of one, causal."""
+    launches = 0
+    kept = None
+    for seq, iters in ((ATTN_S, 5), (ATTN_LONG_S, 2)):
+        shape = (ATTN_N, seq, ATTN_D)
+        q, k, v = (_randn(torch, shape, torch.bfloat16, gen, dev)
+                   for _ in range(3))
+        _build.reset_launch_counts()
+        out = ring_mod.ring_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        got = _build.launch_counts()["block_attention"]
+        require(got > 0, "ring_attention did not launch block_attention")
+        launches += got
+        require(out.shape == q.shape and out.dtype == q.dtype
+                and bool(torch.isfinite(out).all()),
+                "ring_attention output has the wrong shape or non-finite "
+                "values")
+        err = _attention_oracle_err(torch, q, k, v, out)
+        ms = cuda_ms(lambda: ring_mod.ring_attention(q, k, v, causal=True),
+                     iters=iters)
+        profile(torch, f"ring_attention_{seq}",
+                lambda: ring_mod.ring_attention(q, k, v, causal=True))
+        flops = 2 * 2 * ATTN_N * (seq * seq / 2) * ATTN_D
+        phase("ring_attention_1gpu", n_heads=ATTN_N, seq=seq,
+              d_head=ATTN_D, dtype="bfloat16", causal=True, group_size=1,
+              ms=ms, tflop_per_s_per_card=flops / ms / 1e9,
+              launches=got, max_abs_err_vs_oracle=err,
+              oracle_tol=ATTN_OUT_TOL, correct=True)
+        if seq == ATTN_S:
+            kept = (q, k, v, out)
+        else:
+            del q, k, v, out
+    return kept, launches
+
+
+def phase_ulysses(torch, ring_mod, _build, q, k, v, ring_out):
+    _build.reset_launch_counts()
+    out = ring_mod.ulysses_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()["block_attention"]
+    require(launches > 0, "ulysses_attention did not launch the kernel")
+    require(torch.allclose(out.float(), ring_out.float(), **ATTN_OUT_TOL),
+            "ulysses and ring attention disagree")
+    err = float((out.float() - ring_out.float()).abs().max())
+    ms = cuda_ms(lambda: ring_mod.ulysses_attention(q, k, v, causal=True))
+    profile(torch, "ulysses_attention",
+            lambda: ring_mod.ulysses_attention(q, k, v, causal=True))
+    phase("ulysses_attention_1gpu", n_heads=ATTN_N, seq=ATTN_S,
+          d_head=ATTN_D, dtype="bfloat16", causal=True, group_size=1,
+          ms=ms, launches=launches, max_abs_err_vs_ring=err, correct=True)
+
+
+def phase_ring_fold(torch, attn, ring_mod, q, k, v, ring_out, shards=4):
+    """The ring's fold and nonzero k_offset on one card: each q shard
+    folds the partials of the K/V shards in the ring's hop order."""
+    s_local = ATTN_S // shards
+    scale = 1.0 / math.sqrt(ATTN_D)
+    worst = 0.0
+    for my in range(shards):
+        rows = slice(my * s_local, (my + 1) * s_local)
+        acc = None
+        for j in range(shards):
+            src = (my - j) % shards
+            cols = slice(src * s_local, (src + 1) * s_local)
+            part = attn.block_attention(
+                q[:, rows], k[:, cols], v[:, cols], q_offset=my * s_local,
+                k_offset=src * s_local, causal=True, scale=scale)
+            acc = part if acc is None else ring_mod.fold_partials(*acc, *part)
+        out = ring_mod.normalize(acc[2], acc[1], q.dtype).float()
+        want = ring_out[:, rows].float()
+        require(torch.allclose(out, want, **ATTN_OUT_TOL),
+                f"ring fold differs from ring_attention (shard {my})")
+        worst = max(worst, float((out - want).abs().max()))
+    phase("ring_fold_1gpu", shards=shards, s_local=s_local,
+          n_heads=ATTN_N, d_head=ATTN_D, dtype="bfloat16", causal=True,
+          max_abs_err_vs_ring=worst, correct=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -457,7 +685,11 @@ def main(argv=None) -> int:
         from sparkrdma_tpu_torch import _build
         from sparkrdma_tpu_torch import models
         from sparkrdma_tpu_torch.models import _base as base
+        # the module: the package exports a function of the same name
+        ring_mod = importlib.import_module(
+            "sparkrdma_tpu_torch.models.ring_attention")
         from sparkrdma_tpu_torch.models import terasort as ts
+        from sparkrdma_tpu_torch.ops import attention as attn
         from sparkrdma_tpu_torch.ops import scan_kernels as scan
         from sparkrdma_tpu_torch.ops import sort_kernel as sk_mod
     except ImportError as e:
@@ -466,6 +698,9 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # float32 products in full float32: the plain versions and oracles
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     CARD["smi"] = nvidia_smi()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -485,6 +720,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         scan_k["launches"] = phase_keyed(torch, models, base, _build, gen,
                                          dev)
+        torch.cuda.empty_cache()
+        check_err = phase_attention_check(torch, attn, gen, dev)
+        attn_k = phase_attention_time(torch, attn, gen, dev)
+        attn_k["max_abs_err"] = max(attn_k["max_abs_err"], check_err)
+        torch.cuda.empty_cache()
+        (q, k, v, ring_out), attn_k["launches"] = phase_ring(
+            torch, ring_mod, _build, gen, dev)
+        torch.cuda.empty_cache()
+        phase_ulysses(torch, ring_mod, _build, q, k, v, ring_out)
+        phase_ring_fold(torch, attn, ring_mod, q, k, v, ring_out)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -495,6 +740,9 @@ def main(argv=None) -> int:
         dict(name="flagged_scan", route="cuda",
              source="sparkrdma_tpu_torch/csrc/flagged_scan.cu",
              replaces="sparkrdma_tpu/ops/scan_kernels.py:139", **scan_k),
+        dict(name="block_attention", route="cuda",
+             source="sparkrdma_tpu_torch/csrc/block_attention.cu",
+             replaces="sparkrdma_tpu/ops/attention.py:60", **attn_k),
     ]
     keys_order = ["name", "route", "source", "replaces", "launches",
                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -6,9 +6,11 @@ run on CUDA unless the caller passes ``device="cpu"``, and raise when
 CUDA is absent.  The hand-written kernels of ``csrc/`` build with
 ``nvcc`` at first use (``_build.py``).
 
-This slice covers one GPU: TeraSort (sortByKey, 8 B and wide records),
-the two-phase block sort engine, WordCount (reduceByKey) and keyed
-aggregation (aggregateByKey).
+The shuffle models run on one GPU: TeraSort (sortByKey, 8 B and wide
+records), the two-phase block sort engine, WordCount (reduceByKey) and
+keyed aggregation (aggregateByKey).  Sequence-parallel attention (ring
+and Ulysses) runs on a ``torch.distributed`` exchange group of any
+size, over the blockwise flash-attention kernel.
 """
 
 from sparkrdma_tpu_torch.models import (
@@ -16,17 +18,26 @@ from sparkrdma_tpu_torch.models import (
     KeyStats,
     TeraSorter,
     WordCounter,
+    ring_attention,
+    ulysses_attention,
 )
+from sparkrdma_tpu_torch.ops.attention import block_attention
 from sparkrdma_tpu_torch.ops.sort_kernel import (
     sort_pairs_full,
     sort_pairs_full_checked,
 )
+from sparkrdma_tpu_torch.parallel import ExchangeGroup, RingExchange
 
 __all__ = [
+    "ExchangeGroup",
     "KeyStats",
     "KeyedAggregator",
+    "RingExchange",
     "TeraSorter",
     "WordCounter",
+    "block_attention",
+    "ring_attention",
     "sort_pairs_full",
     "sort_pairs_full_checked",
+    "ulysses_attention",
 ]

@@ -158,6 +158,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sr_flagged_scan.restype = i
     lib.sr_flagged_scan_tile.argtypes = []
     lib.sr_flagged_scan_tile.restype = i
+    lib.sr_block_attention.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p,
+    ]
+    lib.sr_block_attention.restype = i
 
 
 def load() -> ctypes.CDLL:

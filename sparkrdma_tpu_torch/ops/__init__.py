@@ -1,3 +1,8 @@
+from sparkrdma_tpu_torch.ops.attention import (
+    NEG_INF,
+    block_attention,
+    block_attention_plain,
+)
 from sparkrdma_tpu_torch.ops.scan_kernels import (
     cumsum_1d,
     scan_flagged,
@@ -19,7 +24,10 @@ from sparkrdma_tpu_torch.ops.sort_kernel import (
 
 __all__ = [
     "BucketOverflowError",
+    "NEG_INF",
     "aggregate_by_key_local",
+    "block_attention",
+    "block_attention_plain",
     "block_sort_plain",
     "bucket_cap",
     "cumsum_1d",

@@ -1,0 +1,158 @@
+"""Blockwise attention partials: the port of ``sparkrdma_tpu/ops/attention.py``.
+
+One call computes the flash-style partials of attention between the
+queries and ONE key/value block:
+
+    m[i] = max_j s[i, j]                  (row max of masked scores)
+    l[i] = sum_j exp(s[i, j] - m[i])      (unnormalised denominator)
+    o[i] = sum_j exp(s[i, j] - m[i]) v[j]
+
+with ``s = (q @ k^T in float32) * scale`` and an optional causal mask by
+global positions ``q_offset + i >= k_offset + j``.  The ring step folds
+the partials into its running accumulator (``models/ring_attention.py``).
+
+``NEG_INF`` is a large FINITE number, not -inf: a row masked throughout
+the call keeps ``m == NEG_INF``, its ``exp(NEG_INF - NEG_INF) = 1``
+gives ``l = s_k`` and ``o = sum v``, and the fold's
+``exp(NEG_INF - m_new) = 0`` annihilates those partials; -inf would give
+inf - inf = NaN there.
+
+On a CUDA tensor :func:`block_attention` launches the hand-written
+kernel of ``csrc/block_attention.cu`` (or raises); on a CPU tensor it
+runs :func:`block_attention_plain`, which is also what the kernel is
+held against on the card.  Both follow the Pallas kernel's arithmetic:
+the scale multiplies the float32 product, and ``p`` is cast to v's
+dtype before the ``p @ v`` product, accumulated in float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from sparkrdma_tpu_torch import _build
+
+NEG_INF = -1e30
+BLOCK_Q = 64    # query rows per CUDA block
+BLOCK_K = 64    # keys per step of its loop over the K/V block
+D_HEADS = (64, 128)
+KERNEL_ITEM = "ROADMAP.md, 'Next, in order', item 1 (kernel redesigns)"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = _build.LaunchCounter("block_attention")
+
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def block_attention_plain(q, k, v, q_offset: int, k_offset: int,
+                          causal: bool, scale: float) -> Partials:
+    """The kernel's function in plain PyTorch over ``[..., s, d]``: q and
+    k upcast to float32 for the product, ``p`` cast to v's dtype before
+    a float32 ``p @ v``."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[-2], device=q.device)
+        k_pos = k_offset + torch.arange(k.shape[-2], device=q.device)
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                        torch.tensor(NEG_INF, device=q.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return m, p.sum(dim=-1), o
+
+
+def _check(q, k, v):
+    if q.dim() not in (2, 3):
+        raise ValueError(f"q must be [s, d] or [N, s, d], got {tuple(q.shape)}")
+    if k.shape != v.shape or k.dim() != q.dim():
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"share a shape of q's rank {q.dim()}")
+    if k.shape[-1] != q.shape[-1] or k.shape[:-2] != q.shape[:-2]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or d_head")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned, as the kernel's 16-byte
+    copies need (a view into a larger tensor may start anywhere)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _attention_cuda(q, k, v, q_offset, k_offset, causal, scale) -> Partials:
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes {sorted(map(str, _DTYPE_CODE))}, "
+                         f"got {q.dtype}")
+    d = q.shape[-1]
+    if d not in D_HEADS:
+        raise NotImplementedError(
+            f"d_head={d}: the kernel takes d_head in {D_HEADS} "
+            f"({KERNEL_ITEM})")
+    q3, k3, v3 = (_rows16(x.reshape(-1, x.shape[-2], d)) for x in (q, k, v))
+    n, s_q, s_k = q3.shape[0], q3.shape[1], k3.shape[1]
+    m = torch.empty((n, s_q), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    o = torch.empty((n, s_q, d), dtype=torch.float32, device=q.device)
+    if m.numel() == 0:
+        return (m.reshape(q.shape[:-1]), l.reshape(q.shape[:-1]),
+                o.reshape(q.shape))
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.sr_block_attention(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+            m.data_ptr(), l.data_ptr(), o.data_ptr(),
+            n, s_q, s_k, d, int(q_offset), int(k_offset), int(causal),
+            ctypes.c_float(scale), _DTYPE_CODE[q.dtype], stream,
+        )
+    _build.check(rc, "block_attention")
+    LAUNCHES.bump()
+    return (m.reshape(q.shape[:-1]), l.reshape(q.shape[:-1]),
+            o.reshape(q.shape))
+
+
+def block_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    block_q: int = BLOCK_Q,
+    block_k: int = BLOCK_K,
+) -> Partials:
+    """Partial attention of ``q`` ``[s_q, d]`` against one K/V block
+    ``[s_k, d]``, or of a batch ``[N, s, d]`` (the JAX package's
+    ``vmap``).  Returns float32 ``(m [(N,) s_q], l [(N,) s_q],
+    o [(N,) s_q, d])``; ``o`` is not normalised.
+
+    ``q_offset`` and ``k_offset`` are the global positions of row 0 of
+    q and of k, used by the causal mask.  ``scale`` defaults to
+    ``1 / sqrt(d)``.  ``block_q`` and ``block_k`` are the kernel's tile
+    (query rows per CUDA block, keys per step of its loop); it runs the
+    (64, 64) tile only, and any other asks raise on every device.
+    CUDA tensors (bfloat16 or float32, d 64 or 128) run the kernel;
+    CPU tensors run :func:`block_attention_plain`.
+    """
+    _check(q, k, v)
+    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        raise NotImplementedError(
+            f"tile ({block_q}, {block_k}): the kernel runs "
+            f"({BLOCK_Q}, {BLOCK_K}) ({KERNEL_ITEM})")
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cuda":
+        return _attention_cuda(q, k, v, q_offset, k_offset, causal,
+                               float(scale))
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return block_attention_plain(q, k, v, q_offset, k_offset, causal,
+                                 float(scale))

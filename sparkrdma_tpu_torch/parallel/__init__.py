@@ -1,3 +1,16 @@
 from sparkrdma_tpu_torch.parallel.device import resolve_device, select_devices
+from sparkrdma_tpu_torch.parallel.group import ExchangeGroup
+from sparkrdma_tpu_torch.parallel.ring import (
+    RingExchange,
+    ring_shift,
+    ring_shift_back,
+)
 
-__all__ = ["resolve_device", "select_devices"]
+__all__ = [
+    "ExchangeGroup",
+    "RingExchange",
+    "resolve_device",
+    "ring_shift",
+    "ring_shift_back",
+    "select_devices",
+]

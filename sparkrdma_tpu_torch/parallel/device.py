@@ -1,9 +1,10 @@
 """Device selection: the counterpart of ``sparkrdma_tpu/parallel/mesh.py``.
 
 The JAX package fixes a 1-D ``Mesh`` over the chosen devices; this port
-runs one process per GPU, and this slice runs on ONE device.  The device
-is CUDA unless the caller asks for the CPU (as the tests do); there is
-no silent drop to the CPU when CUDA is absent.
+runs one process per GPU, and the shuffle models run on ONE device (the
+process group of ``parallel/group.py`` serves the attention path).  The
+device is CUDA unless the caller asks for the CPU (as the tests do);
+there is no silent drop to the CPU when CUDA is absent.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 MULTI_GPU_ITEM = (
-    "ROADMAP.md, 'Next, in order', item 1: Multi-GPU exchange "
+    "ROADMAP.md, 'Next, in order', item 2: Multi-GPU exchange "
     "(partition.py, hash_exchange and the D > 1 TeraSort over "
     "torch.distributed)"
 )

@@ -1,0 +1,166 @@
+"""The port's ``block_attention`` against the JAX package, on the CPU.
+
+On a CPU tensor ``sparkrdma_tpu_torch.ops.attention.block_attention``
+runs its plain version, which must compute the Pallas kernel's
+function.  The same seeded numpy inputs go through the port and through
+JAX's ``block_attention`` with ``impl="pallas"`` (interpret mode on the
+CPU, as tests/test_attention_kernel.py runs it) and ``impl="xla"``; a
+batch goes through ``jax.vmap``, as the JAX ring does.
+
+Tolerances, as tests/test_attention_kernel.py holds Pallas against xla:
+m and l rtol 1e-5, o rtol and atol 1e-4 (float32 sums in other orders).
+bfloat16 is held against the Pallas path only, because JAX's xla path
+does not round ``p`` to bfloat16 before ``p @ v``; Pallas runs with one
+K block over all of s_k, so both round ``p`` against the same row max,
+and o keeps rtol and atol 1e-4 relative to its scale (bf16 inputs are
+exact in float32; only summation order differs).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sparkrdma_tpu.ops import attention as jattn
+from sparkrdma_tpu_torch.ops import attention as tattn
+
+M_TOL = dict(rtol=1e-5)
+O_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _qkv(n, s_q, s_k, d, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    lead = () if n is None else (n,)
+    return (rng.standard_normal(lead + (s_q, d)).astype(dtype),
+            rng.standard_normal(lead + (s_k, d)).astype(dtype),
+            rng.standard_normal(lead + (s_k, d)).astype(dtype))
+
+
+def _jax(q, k, v, impl, jdtype=jnp.float32, **kw):
+    # float32 runs Pallas over several K blocks (its online rescaling);
+    # bfloat16 over one, so that p is rounded against the full row max
+    block_k = k.shape[-2] if jdtype == jnp.bfloat16 else 32
+    blocks = dict(block_q=32, block_k=block_k) if impl == "pallas" else {}
+
+    def one(qq, kk, vv):
+        return jattn.block_attention(qq, kk, vv, impl=impl, **blocks, **kw)
+
+    fn = one if q.ndim == 2 else jax.vmap(one)
+    return tuple(np.asarray(x) for x in fn(
+        *(jnp.asarray(x, jdtype) for x in (q, k, v))))
+
+
+def _port(q, k, v, dtype=torch.float32, **kw):
+    return tattn.block_attention(
+        *(torch.from_numpy(x).to(dtype) for x in (q, k, v)), **kw)
+
+
+def _close(got, want):
+    m, l, o = (x.numpy() for x in got)
+    assert all(x.dtype == np.float32 for x in (m, l, o))
+    np.testing.assert_allclose(m, want[0], **M_TOL)
+    np.testing.assert_allclose(l, want[1], **M_TOL)
+    np.testing.assert_allclose(o, want[2], **O_TOL)
+
+
+CASES = {
+    # name: (batch, s_q, s_k, d, q_offset, k_offset)
+    "square": (None, 64, 64, 64, 0, 0),
+    "s_q_ne_s_k": (None, 64, 96, 64, 32, 0),
+    "batch3": (3, 64, 96, 32, 0, 0),
+    "k_ahead": (None, 64, 96, 64, 0, 16),
+    "q_ahead": (3, 64, 64, 32, 128, 0),
+}
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_f32_matches_jax(name, causal, impl):
+    n, s_q, s_k, d, qo, ko = CASES[name]
+    q, k, v = _qkv(n, s_q, s_k, d, seed=len(name) + causal)
+    kw = dict(q_offset=qo, k_offset=ko, causal=causal)
+    _close(_port(q, k, v, **kw), _jax(q, k, v, impl, **kw))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("n", [None, 3])
+def test_f32_fully_masked_rows_keep_neg_inf(n, impl):
+    s_q, s_k = 64, 96
+    q, k, v = _qkv(n, s_q, s_k, 32, seed=5)
+    kw = dict(q_offset=0, k_offset=s_q, causal=True)  # every key ahead
+    m, l, o = _port(q, k, v, **kw)
+    assert bool((m == tattn.NEG_INF).all())
+    assert bool((l == s_k).all())
+    np.testing.assert_allclose(
+        o.numpy(), np.broadcast_to(v.sum(-2, keepdims=True), o.shape),
+        rtol=1e-5, atol=1e-5)
+    _close((m, l, o), _jax(q, k, v, impl, **kw))
+
+
+def test_f32_partly_masked_rows():
+    # rows 0..15 see no key, the rest a growing prefix
+    q, k, v = _qkv(None, 64, 64, 32, seed=6)
+    kw = dict(q_offset=0, k_offset=16, causal=True)
+    m, l, _o = _port(q, k, v, **kw)
+    assert bool((m[:16] == tattn.NEG_INF).all())
+    assert bool((m[16:] > tattn.NEG_INF).all())
+    np.testing.assert_array_equal(l[:16].numpy(), np.full(16, 64.0))
+    _close(_port(q, k, v, **kw), _jax(q, k, v, "pallas", **kw))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name", ["s_q_ne_s_k", "batch3", "k_ahead"])
+def test_bf16_matches_jax_pallas(name, causal):
+    n, s_q, s_k, d, qo, ko = CASES[name]
+    q, k, v = _qkv(n, s_q, s_k, d, seed=11 + len(name) + causal)
+    kw = dict(q_offset=qo, k_offset=ko, causal=causal)
+    got = _port(q, k, v, dtype=torch.bfloat16, **kw)
+    _close(got, _jax(q, k, v, "pallas", jdtype=jnp.bfloat16, **kw))
+
+
+def test_plain_rounds_p_to_v_dtype():
+    """bf16: the plain version differs from an unrounded f32 ``p @ v``
+    (JAX's xla path) by the rounding of p, and equals it when p is
+    rounded first."""
+    q, k, v = _qkv(None, 64, 96, 32, seed=12)
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    m, l, o = tattn.block_attention(qb, kb, vb, causal=True)
+    s = (qb.float() @ kb.float().T) / np.sqrt(32)
+    s = torch.where(torch.ones(64, 96, dtype=torch.bool).tril(), s,
+                    torch.tensor(tattn.NEG_INF))
+    p = torch.exp(s - m[:, None])
+    assert torch.equal(o, p.to(torch.bfloat16).float() @ vb.float())
+    assert not torch.equal(o, p @ vb.float())
+
+
+def test_default_scale_is_inverse_sqrt_d():
+    q, k, v = _qkv(2, 16, 16, 64, seed=13)
+    a = _port(q, k, v)
+    b = _port(q, k, v, scale=1 / 8.0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "shapes,kw",
+    [(((4, 8), (5, 8), (4, 8)), {}),
+     (((4, 8), (4, 16), (4, 16)), {}),
+     (((8,), (8,), (8,)), {}),
+     (((2, 4, 8), (3, 4, 8), (3, 4, 8)), {}),
+     (((4, 8), (4, 8), (4, 8)), dict(block_q=32)),
+     (((4, 8), (4, 8), (4, 8)), dict(block_k=128))],
+)
+def test_refuses_bad_shapes_and_tiles(shapes, kw):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    err = NotImplementedError if kw else ValueError
+    with pytest.raises(err):
+        tattn.block_attention(q, k, v, **kw)
+
+
+def test_refuses_mixed_dtypes():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        tattn.block_attention(x, x, x.to(torch.bfloat16))

@@ -8,7 +8,8 @@ that has only PyTorch; there, skip the JAX-only conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Integer results must match bit for bit; ``fill`` is compared under the
-returned flag.
+returned flag.  Attention partials are held with the tolerances of
+:func:`_close_partials`.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from sparkrdma_tpu_torch import _build
+from sparkrdma_tpu_torch.ops import attention as tattn
 from sparkrdma_tpu_torch.ops import scan_kernels as tscan
 from sparkrdma_tpu_torch.ops import sort_kernel as tsort
 
@@ -110,6 +112,76 @@ def test_kernels_count_their_launches(cuda_device):
     k = torch.arange(512, dtype=torch.int32, device=cuda_device)
     tsort.sort_pairs_blocks(k, k, block_rows=4)
     tscan.cumsum_1d(k)
+    x = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda_device)
+    tattn.block_attention(x, x, x)
     assert _build.launch_counts() == {
-        "flagged_scan": 1, "bitonic_block_sort": 1,
+        "flagged_scan": 1, "bitonic_block_sort": 1, "block_attention": 1,
     }
+
+
+def _close_partials(got, want, dtype):
+    """m: float32 dot products summed in another order, atol and rtol
+    1e-5, and rows masked throughout exactly NEG_INF.  l: rtol 1e-4 (the
+    kernel's fast exponential and its order of summation).  o: within
+    1e-4 of its largest magnitude in float32; in bfloat16 within 2^-7 of
+    it, because the kernel rounds p to bfloat16 against the running max
+    of each 64-key tile and the plain version against the row max (one
+    bfloat16 rounding, 2^-9 relative, per term of the sum)."""
+    (m, l, o), (wm, wl, wo) = got, want
+    masked = wm == tattn.NEG_INF
+    assert torch.equal(m[masked], wm[masked])
+    torch.testing.assert_close(m[~masked], wm[~masked], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=0)
+    scale = float(wo.abs().max())
+    o_tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert float((o - wo).abs().max()) <= o_tol * scale
+
+
+def _qkv_cuda(n, s_q, s_k, d, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.standard_normal((n, s, d)).astype(np.float32))
+        .to(device=device, dtype=dtype)
+        for s in (s_q, s_k, s_k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernel_matches_plain_on_card(cuda_device, dtype, d,
+                                                causal):
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain in full f32
+    for n, s_q, s_k, qo, ko in ((2, 256, 256, 0, 0),
+                                (3, 100, 150, 50, 0),
+                                (1, 64, 192, 64, 0)):
+        q, k, v = _qkv_cuda(n, s_q, s_k, d, dtype, cuda_device, s_q + d)
+        got = tattn.block_attention(q, k, v, qo, ko, causal)
+        want = tattn.block_attention_plain(q, k, v, qo, ko, causal,
+                                           1.0 / d ** 0.5)
+        _close_partials(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernel_masked_rows_on_card(cuda_device, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s_q, s_k = 100, 150
+    q, k, v = _qkv_cuda(3, s_q, s_k, 128, dtype, cuda_device, 7)
+    m, l, o = tattn.block_attention(q, k, v, 0, s_q, True)  # all masked
+    assert bool((m == tattn.NEG_INF).all()) and bool((l == s_k).all())
+    torch.testing.assert_close(
+        o, v.float().sum(1, keepdim=True).expand_as(o), rtol=1e-4,
+        atol=1e-3)
+    for qo, ko in ((0, 70), (130, 130)):  # rows partly / fully masked
+        got = tattn.block_attention(q, k, v, qo, ko, True)
+        want = tattn.block_attention_plain(q, k, v, qo, ko, True,
+                                           1.0 / 128 ** 0.5)
+        _close_partials(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_refuses_other_d_head_on_card(cuda_device):
+    x = torch.zeros(64, 96, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.block_attention(x, x, x)

@@ -23,6 +23,7 @@ from sparkrdma_tpu.ops import scan_kernels as jscan
 from sparkrdma_tpu.ops import sort_kernel as jsort
 from sparkrdma_tpu.ops.segment import _ff_run_carry, segmented_scan
 from sparkrdma_tpu_torch import _build
+from sparkrdma_tpu_torch.ops import attention as tattn
 from sparkrdma_tpu_torch.ops import lexsort as tlex
 from sparkrdma_tpu_torch.ops import scan_kernels as tscan
 from sparkrdma_tpu_torch.ops import segment as tseg
@@ -236,8 +237,10 @@ def test_launch_counters_untouched_on_cpu():
     k = np.arange(512, dtype=np.int32)
     tsort.sort_pairs_blocks(*_t(k, k), block_rows=4)
     tscan.cumsum_1d(*_t(k))
+    x = torch.zeros(64, 64)
+    tattn.block_attention(x, x, x)
     assert _build.launch_counts() == {
-        "flagged_scan": 0, "bitonic_block_sort": 0,
+        "flagged_scan": 0, "bitonic_block_sort": 0, "block_attention": 0,
     }
 
 

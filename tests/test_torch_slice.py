@@ -288,7 +288,10 @@ def test_interop_round_trip():
 def test_import_loads_neither_jax_nor_reference():
     code = (
         "import sys, sparkrdma_tpu_torch, sparkrdma_tpu_torch.ops, "
-        "sparkrdma_tpu_torch.models, sparkrdma_tpu_torch.interop\n"
+        "sparkrdma_tpu_torch.models, sparkrdma_tpu_torch.interop, "
+        "sparkrdma_tpu_torch.parallel.ring, "
+        "sparkrdma_tpu_torch.ops.attention, "
+        "sparkrdma_tpu_torch.models.ring_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sparkrdma_tpu' "
         "or m.startswith('sparkrdma_tpu.'))\n"
