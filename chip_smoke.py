@@ -29,6 +29,7 @@ import argparse
 import importlib
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
@@ -60,7 +61,7 @@ NEG_INF = -1e30
 # - l: the kernel's fast exponential and order of summation: rtol 1e-4;
 # - o: float32 within 1e-4 of its largest magnitude; bfloat16 within
 #   2^-7 of it, since the kernel rounds p to bfloat16 against the running
-#   max of each 64-key tile and the plain version against the row max
+#   max of each 128-key tile and the plain version against the row max
 #   (one bfloat16 rounding, 2^-9 relative, per term of the sum).
 ATTN_M_TOL = 1e-5
 ATTN_L_RTOL = 1e-4
@@ -158,15 +159,77 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def _demangle(names):
+    try:
+        r = subprocess.run(["c++filt"], input="\n".join(names),
+                           capture_output=True, text=True, timeout=60)
+        got = r.stdout.splitlines()
+        if r.returncode == 0 and len(got) == len(names):
+            return [g.replace("(anonymous namespace)::", "")
+                    .removeprefix("void ").split("(")[0] for g in got]
+    except OSError:
+        pass
+    return list(names)
+
+
+def _ptxas_rows(log: str):
+    """(source, kernel, registers and shared memory, spills) for each
+    kernel that nvcc compiled, from the build log."""
+    rows, src, name, spill = [], "", "", ""
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if ln.startswith("== "):
+            src = ln[3:]
+        elif "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], ""
+        elif "spill" in ln:
+            spill = ln
+        elif "Used" in ln and "registers" in ln:
+            rows.append([src, name, ln.split(": ", 1)[-1], spill])
+    for row, pretty in zip(rows, _demangle([r[1] for r in rows])):
+        row[1] = pretty
+    return rows
+
+
+def _sass_counts(_build, ops=("HGMMA", "UTMALDG", "HMMA")):
+    """Per kernel of the built library, how many SASS lines name each
+    of ``ops`` (cuobjdump, next to nvcc)."""
+    lib = _build.BUILD_DIR / _build.source_hash() / _build.LIB_NAME
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    r = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300)
+    require(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()}")
+    counts, cur = {}, None
+    for ln in r.stdout.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :", 1)[1].strip()
+            counts[cur] = dict.fromkeys(ops, 0)
+        elif cur is not None:
+            for op in ops:
+                if op in ln:
+                    counts[cur][op] += 1
+    names = list(counts)
+    return dict(zip(_demangle(names), (counts[n] for n in names)))
+
+
 def phase_build(_build):
+    """Build the kernels, print the ptxas lines of kernels 1 and 3, and
+    check in the SASS that kernel 3's bfloat16 path runs on wgmma
+    (HGMMA) fed by TMA (UTMALDG), with no mma.sync (HMMA) left."""
     t0 = time.monotonic()
     _build.load()
     secs = time.monotonic() - t0
-    ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
-    for ln in ptxas:
-        print("# ptxas " + ln)
-    phase("build", seconds=secs, sources=[p.name for p in _build.sources()])
+    for src, name, used, spill in _ptxas_rows(_build.build_log()):
+        if src in ("flagged_scan.cu", "block_attention.cu"):
+            print(f"# ptxas {src} {name}: {used} | {spill}")
+    sass = {k: v for k, v in _sass_counts(_build).items()
+            if "attention_bf16" in k}
+    require(len(sass) == 2, f"expected two attention_bf16 kernels: {sass}")
+    for name, c in sass.items():
+        require(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+                f"{name}: SASS {c} lacks wgmma or TMA, or has mma.sync")
+    phase("build", seconds=secs, sources=[p.name for p in _build.sources()],
+          sass_attention_bf16=sass)
 
 
 def _adversarial(torch, case, n, gen, dev):
@@ -506,6 +569,14 @@ def phase_attention_check(torch, attn, gen, dev):
     cases += [(dt, 128, True, 3, 1000, 1500, qo, ko)
               for dt in ("bfloat16", "float32")
               for qo, ko in ((0, 1000), (0, 300))]
+    # 128-row q tiles straddling the diagonal at nonzero offsets, rows
+    # masked throughout, a K block wholly in the future, a ring hop
+    cases += [(dt, d, True, n, s_q, s_k, qo, ko)
+              for dt in ("bfloat16", "float32") for d in (64, 128)
+              for n, s_q, s_k, qo, ko in ((2, 300, 500, 200, 0),
+                                          (2, 300, 500, 0, 70),
+                                          (2, 300, 500, 0, 400),
+                                          (4, 1024, 1536, 1024, 512))]
     for dt, d, causal, n, s_q, s_k, qo, ko in cases:
         dtype = getattr(torch, dt)
         q = _randn(torch, (n, s_q, d), dtype, gen, dev)
@@ -566,6 +637,24 @@ def phase_attention_time(torch, attn, gen, dev):
           library_ms=lib, library="scaled_dot_product_attention "
           "(normalises)", bound_ms=b_ms, bound_by=b_by,
           unmasked_tflop_per_s=unmasked / ms / 1e9, max_abs_err=err)
+    del q, k, v
+    # long context: the plain version's score matrix (34 GB) does not
+    # fit, so the kernel runs beside SDPA alone; phase_ring checks it
+    # against the oracle at this length
+    shape = (ATTN_N, ATTN_LONG_S, ATTN_D)
+    q, k, v = (_randn(torch, shape, torch.bfloat16, gen, dev)
+               for _ in range(3))
+    long_ms = cuda_ms(lambda: attn.block_attention(q, k, v, 0, 0, True),
+                      iters=3)
+    long_lib = cuda_ms(lambda: sdpa(q[None], k[None], v[None],
+                                    is_causal=True), iters=3)
+    lb_ms, lb_by = _attention_bound(ATTN_N, ATTN_LONG_S, ATTN_D, 2)
+    unmasked = 4 * ATTN_D * ATTN_N * (ATTN_LONG_S * (ATTN_LONG_S + 1) // 2)
+    phase("attention_time", n=ATTN_N, seq=ATTN_LONG_S, d_head=ATTN_D,
+          dtype="bfloat16", causal=True, ms=long_ms, plain_ms="not measured",
+          library_ms=long_lib, library="scaled_dot_product_attention "
+          "(normalises)", bound_ms=lb_ms, bound_by=lb_by,
+          unmasked_tflop_per_s=unmasked / long_ms / 1e9)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by)
 

@@ -156,8 +156,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, p, i, p, p, p, p, p, p, i, i, i, ll, p, p,
     ]
     lib.sr_flagged_scan.restype = i
-    lib.sr_flagged_scan_tile.argtypes = []
+    lib.sr_flagged_scan_tile.argtypes = [i, i]
     lib.sr_flagged_scan_tile.restype = i
+    lib.sr_flagged_scan_scratch_words.argtypes = [ll]
+    lib.sr_flagged_scan_scratch_words.restype = ll
     lib.sr_block_attention.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p,
     ]

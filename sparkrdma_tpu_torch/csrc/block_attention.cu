@@ -18,44 +18,593 @@
 // not masked entries: they contribute nothing (p = 0, V rows zeroed).
 // Query rows past s_q are computed on zeros and not written.
 //
-// Design.  One CUDA block per (batch n, tile of 64 query rows); the
-// block loops over every 64-key K/V tile itself, which takes the place
-// of the Pallas grid's sequential j axis and its VMEM scratch, so
-// nothing crosses blocks.  Every tile is computed, causal or not, as
-// the TPU kernel does.
-//  - bfloat16: 4 warps, each owning 16 query rows.  The q tile, one K
-//    tile and one V tile sit in shared memory (rows padded by 16 B so
-//    ldmatrix is free of bank conflicts; 52 KB at d = 128).  Scores and
-//    p . v run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//    f32 accumulate); q's fragments stay in registers for the whole
-//    loop, the scores never leave registers, and p becomes the A
-//    fragment of the p . v product in place.  m, l and the o
-//    accumulator are f32 registers.  K and V tiles arrive by cp.async:
-//    the next K tile loads while p . v runs, the next V tile while the
-//    next scores run.
-//  - float32: exact f32 FMAs on the CUDA cores (no TF32), 256 threads,
-//    each holding a 4 x 4 block of scores and a 4 x d/16 block of o.
-//
 // Bound.  At the bench shape (N = 8, S = 8192, d = 128, bf16, causal)
 // the work is 4 d N S^2 / 2 = 137 GFLOP of unmasked products against
 // 84 MB of inputs and outputs: bound by operations (tensor-core rate),
-// 0.139 ms at 989 TFLOP/s; computing every tile doubles the products.
-// The design keeps every operand of the two products on chip (shared
-// memory and registers) so the tensor cores, not memory, set the pace.
-// mma.sync reaches only part of Hopper's rate (wgmma, TMA, warp
-// specialisation and skipping masked tiles are later work).
+// 0.139 ms at 989 TFLOP/s.  Hopper reaches that rate only through
+// wgmma, fed from shared memory that TMA fills, so the bf16 design is
+// built around both.
+//
+// bfloat16 design (d = 64 or 128).  One CTA per (batch n, tile of 128
+// query rows), 384 threads in three warpgroups:
+//  - warpgroup 2, the producer, gives up its registers (setmaxnreg 24)
+//    and one thread keeps TMA loads in flight: the q tile once, then K
+//    and V tiles of 128 keys into a ring of 2 stages each, with 128-byte
+//    swizzle (a d = 128 row is two 64-column panels).  Each stage has a
+//    "full" mbarrier (TMA transaction bytes) and an "empty" one (one
+//    arrival per consumer warp); K and V have their own, so the next K
+//    tile loads while the current p . v runs.
+//  - warpgroups 0 and 1, the consumers (setmaxnreg 240), own 64 query
+//    rows each.  S = q . k^T is wgmma m64n128k16 with both operands read
+//    from swizzled shared memory through descriptors (q stays there for
+//    the whole loop); the f32 accumulators are the scores.  The softmax
+//    runs on them in registers; p, rounded to bf16, becomes the A
+//    operand of o += p . v in registers (wgmma m64n{d}k16, A from
+//    registers, V from shared memory as an MN-major B), so the scores
+//    never touch shared memory.
+//  - Within a warpgroup, tile j's q . k^T and tile j - 1's p . v are
+//    issued together, and tile j's softmax runs while that p . v is in
+//    flight (scores, p and o: about 160 live registers).  Between the
+//    issue and the wait, nothing but wgmma touches an accumulator, or
+//    ptxas serialises the wgmmas (its C7514/C7515 notes); that is why q
+//    tiles masked throughout take a loop of their own.  The two consumer
+//    warpgroups also run out of step, so one's softmax overlaps the
+//    other's products (forcing them to alternate with named barriers
+//    measured no faster).
+//  - Causal tiles are skipped where the mask covers them whole: if
+//    every row of the q tile sees key 0 (q_offset + q0 >= k_offset),
+//    the K tiles that start past the tile's last visible key give
+//    p = exp(NEG_INF - m) = 0, alpha = 1 and an unchanged m, so leaving
+//    them out is exact.  A q tile with some row masked throughout visits
+//    every tile (those rows need l = s_k and o = sum v); where every
+//    row is masked throughout, the q . k^T product is skipped and the
+//    scores are NEG_INF.  Only tiles that reach past the diagonal, and
+//    the ragged last tile, compare positions per element.
+//  - CTAs take the heaviest q tiles first (reversed tile order in
+//    blockIdx), so the last wave holds the short ones.
+//  - Exponentials are ex2.approx on (s_raw - m_raw) * scale * log2(e),
+//    with m kept on the raw product (the scale is positive, so the row
+//    max is the same element) and scaled once at the end: x == m gives
+//    ex2(0) = 1 exactly, and NEG_INF stays NEG_INF.
+//  Shared memory: q 128 x d, K and V 2 x 128 x d each, in bf16: 160 KB
+//  at d = 128 (80 KB at d = 64), one CTA per SM.  ptxas: 168 registers
+//  a thread at launch (setmaxnreg moves them to the consumers), no
+//  spills at d = 64 or 128 (at 232 consumer registers d = 128 spilled 40
+//  bytes and ran slower); chip_smoke.py prints these lines.
+//
+// float32 design: exact f32 FMAs on the CUDA cores (no TF32), 256
+// threads on 64-row tiles, each holding a 4 x 4 block of scores and a
+// 4 x d/16 block of o; every K/V tile is computed.
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------- bf16
+
+constexpr int kTileQ = 128;     // query rows per CTA
+constexpr int kTileK = 128;     // keys per K/V tile
+constexpr int kStages = 2;      // K and V tiles in flight, each
+constexpr int kPanelCols = 64;  // bf16 columns of one 128-byte swizzle row
+constexpr int kPanelBytes = kTileK * 128;  // 128 rows of one panel
+constexpr int kConsumers = 2;   // warpgroups of 64 query rows
+constexpr int kHopperThreads = (kConsumers + 1) * 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct HopperArgs {
+  CUtensorMap tq;  // [n, s_q, d] bf16, box 64 x 128 x 1, 128 B swizzle
+  CUtensorMap tk;  // [n, s_k, d]
+  CUtensorMap tv;  // [n, s_k, d]
+  float* m;
+  float* l;
+  float* o;
+  int n;
+  int n_q_tiles;
+  int s_q;
+  int s_k;
+  int q_offset;
+  int k_offset;
+  int causal;
+  float scale;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Byte offsets of the shared-memory layout (from a 1024-aligned base).
+template <int D>
+struct Layout {
+  static constexpr int kTileBytes = (D / kPanelCols) * kPanelBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  // full_q, then full_k, full_v, empty_k, empty_v: kStages each
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; lbo and sbo in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator
+// registers across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define SR_REGS32                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define SR_REGS64                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}"
+#define SR_F8(b)                                                    \
+  "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),       \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d (+)= A . B, m64n128k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SR_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24), SR_F8(32), SR_F8(40),
+        SR_F8(48), SR_F8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, m64n128k16, A (bf16 fragments) in registers, B MN-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SR_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24), SR_F8(32), SR_F8(40),
+        SR_F8(48), SR_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same at n = 64 (o of d = 64).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SR_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// S = q . k^T of this warpgroup's 64 rows against one K tile: issued and
+// committed, not waited for (after a wgmma_fence()).
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&sacc)[64], uint32_t q,
+                                             uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns of d per step; kk / 4 picks the 64-column panel
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_ss_n128(sacc, sw128_desc(q + off, 16, 1024),
+                  sw128_desc(k + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// o += p . v against one V tile: issued and committed, not waited for
+// (after a wgmma_fence()).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pf)[kTileK / 16][4],
+                                         uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk) {
+    // 16 keys (rows of V) from kk * 16; panels of 64 columns apart
+    const uint64_t dv = sw128_desc(v + kk * 16 * 128, kPanelBytes, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128(oacc, pf[kk], dv);
+    else
+      wgmma_rs_n64(oacc, pf[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// Keeps p's registers (p . v's A operand) unchanged until its wgmma is
+// waited for.
+__device__ __forceinline__ void pf_fence(uint32_t (&pf)[kTileK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e])::"memory");
+}
+
+// Where the consumer thread sits: rows `row` and `row` + 8 of the q
+// block; `wrow0` its warp's first row; `tig` its column pair in each
+// 8-column chunk; (row, col) is causally masked when row - col < delta.
+struct Seat {
+  int row;
+  int wrow0;
+  int tig;
+  int delta;
+};
+
+// The online softmax over one tile of raw scores in place: the mask
+// (NEG_INF where masked, -inf past s_k, which the max drops and p turns
+// into 0), the running max, p, the row sums into l; alpha rescales o.
+__device__ __forceinline__ void softmax_tile(float (&sacc)[64],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&alpha)[2],
+                                             const HopperArgs& a, int kbase,
+                                             const Seat& at) {
+  if (kbase + kTileK > a.s_k ||
+      (a.causal && at.wrow0 - (kbase + kTileK - 1) < at.delta)) {
+    // the ragged last tile, or a tile reaching past the diagonal
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = kbase + (i / 4) * 8 + 2 * at.tig + (i & 1);
+      const int r = at.row + ((i >> 1) & 1) * 8;
+      if (col >= a.s_k)
+        sacc[i] = -INFINITY;
+      else if (a.causal && r - col < at.delta)
+        sacc[i] = kNegInf;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_run[h], mx[h]);
+    alpha[h] = ex2((m_run[h] - m_new) * a.scale_log2);
+    m_run[h] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = ex2((sacc[i] - m_run[h]) * a.scale_log2);
+    sacc[i] = p;
+    rs[h] += p;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + rs[h];
+}
+
+// p, rounded to bf16, as the A fragments of p . v (16 keys each): the
+// score accumulator layout of m64n128 is the A layout of m64k16.
+__device__ __forceinline__ void p_to_bf16(const float (&sacc)[64],
+                                          uint32_t (&pf)[kTileK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk) {
+    pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+// Which K tiles a q tile visits, the same in every thread of the CTA.
+struct Visit {
+  int n_tiles;
+  bool all_masked;  // every row masked throughout: no q . k^T product
+};
+
+__device__ __forceinline__ Visit plan_visit(const HopperArgs& a, int q0) {
+  Visit v;
+  v.n_tiles = (a.s_k + kTileK - 1) / kTileK;
+  v.all_masked = false;
+  if (a.causal) {
+    const int q_last = min(q0 + kTileQ, a.s_q) - 1;
+    // the last key column any row of the tile sees
+    const long long c_max = (long long)a.q_offset + q_last - a.k_offset;
+    if (c_max < 0) {
+      v.all_masked = true;
+    } else if ((long long)a.q_offset + q0 >= a.k_offset) {
+      v.n_tiles = (int)min((long long)v.n_tiles, c_max / kTileK + 1);
+    }  // else a row masked throughout needs every tile
+  }
+  return v;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    attention_bf16(const __grid_constant__ HopperArgs a) {
+  using L = Layout<D>;
+  constexpr int kPanels = D / kPanelCols;
+  extern __shared__ __align__(16) unsigned char hopper_smem[];
+  const uint32_t raw = smem_u32(hopper_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t bars = base + L::kBars;
+  const uint32_t full_q = bars;
+  auto full_k = [&](int s) { return bars + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
+  auto sK = [&](int s) { return base + L::kK + (uint32_t)s * L::kTileBytes; };
+  auto sV = [&](int s) { return base + L::kV + (uint32_t)s * L::kTileBytes; };
+
+  // heaviest q tiles first: blockIdx runs over (tile descending, batch)
+  const int n = blockIdx.x % a.n;
+  const int q_tile = a.n_q_tiles - 1 - (int)(blockIdx.x / a.n);
+  const int q0 = q_tile * kTileQ;
+  const Visit visit = plan_visit(a, q0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), kConsumers * 4);
+      mbar_init(empty_v(s), kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(full_q, L::kTileBytes);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+        tma_load_3d(sQ + p * kPanelBytes, &a.tq, full_q, p * kPanelCols, q0,
+                    n);
+      for (int j = 0; j < visit.n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t ph = ((j / kStages) & 1) ^ 1;
+        if (!visit.all_masked) {
+          mbar_wait(empty_k(s), ph);
+          mbar_expect_tx(full_k(s), L::kTileBytes);
+#pragma unroll
+          for (int p = 0; p < kPanels; ++p)
+            tma_load_3d(sK(s) + p * kPanelBytes, &a.tk, full_k(s),
+                        p * kPanelCols, j * kTileK, n);
+        }
+        mbar_wait(empty_v(s), ph);
+        mbar_expect_tx(full_v(s), L::kTileBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p)
+          tma_load_3d(sV(s) + p * kPanelBytes, &a.tv, full_v(s),
+                      p * kPanelCols, j * kTileK, n);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;   // row within an 8-row group
+    const int tig = lane & 3;  // column pair within an 8-column chunk
+    Seat at;
+    at.wrow0 = q0 + wg * 64 + warp * 16;
+    at.row = at.wrow0 + g;
+    at.tig = tig;
+    at.delta = a.k_offset - a.q_offset;
+    const int row = at.row;
+    const uint32_t q_rows = sQ + wg * 64 * 128;  // this warpgroup's rows
+
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};  // on the raw (unscaled) product
+    float l_run[2] = {0.f, 0.f};          // this thread's columns only
+    float alpha[2];
+    float sacc[64];
+    uint32_t pf[kTileK / 16][4];
+
+    mbar_wait(full_q, 0);
+    if (visit.all_masked) {
+      // every row masked throughout: m stays NEG_INF and p = exp(0) = 1
+      // on each key below s_k, so l = s_k and o = sum v; p . v only
+      for (int j = 0; j < visit.n_tiles; ++j) {
+        const int s = j % kStages;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int col = j * kTileK + (i / 4) * 8 + 2 * tig + (i & 1);
+          sacc[i] = col < a.s_k ? 1.f : 0.f;
+          l_run[(i >> 1) & 1] += sacc[i];
+        }
+        p_to_bf16(sacc, pf);
+        mbar_wait(full_v(s), (j / kStages) & 1);
+        reg_fence(oacc);
+        wgmma_fence();
+        issue_pv<D>(oacc, pf, sV(s));
+        wgmma_wait<0>();
+        reg_fence(oacc);
+        pf_fence(pf);
+        if (lane == 0) mbar_arrive(empty_v(s));
+      }
+    } else {
+      // Tile j's scores and softmax run while tile j - 1's p . v is in
+      // flight; tile 0 starts the pipeline (o is 0: its alpha is unused).
+      mbar_wait(full_k(0), 0);
+      wgmma_fence();
+      issue_scores<D>(sacc, q_rows, sK(0));
+      wgmma_wait<0>();
+      reg_fence(sacc);
+      if (lane == 0) mbar_arrive(empty_k(0));
+      softmax_tile(sacc, m_run, l_run, alpha, a, 0, at);
+      p_to_bf16(sacc, pf);
+      for (int j = 1; j < visit.n_tiles; ++j) {
+        const int s = j % kStages;
+        const int sp = (j - 1) % kStages;
+        // every wait and every touch of o before the two issues: nothing
+        // but wgmma may run between them, or ptxas serialises the wgmmas
+        mbar_wait(full_k(s), (j / kStages) & 1);
+        mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
+        reg_fence(oacc);
+        wgmma_fence();
+        issue_scores<D>(sacc, q_rows, sK(s));
+        issue_pv<D>(oacc, pf, sV(sp));
+        wgmma_wait<1>();  // the scores; p . v may still run
+        reg_fence(sacc);
+        if (lane == 0) mbar_arrive(empty_k(s));
+        softmax_tile(sacc, m_run, l_run, alpha, a, j * kTileK, at);
+        wgmma_wait<0>();
+        reg_fence(oacc);
+        pf_fence(pf);
+        if (lane == 0) mbar_arrive(empty_v(sp));
+        p_to_bf16(sacc, pf);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      }
+      const int last = visit.n_tiles - 1;
+      const int sp = last % kStages;
+      mbar_wait(full_v(sp), (last / kStages) & 1);
+      reg_fence(oacc);
+      wgmma_fence();
+      issue_pv<D>(oacc, pf, sV(sp));
+      wgmma_wait<0>();
+      reg_fence(oacc);
+      pf_fence(pf);
+      if (lane == 0) mbar_arrive(empty_v(sp));
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+      const int r = row + h * 8;
+      if (r >= a.s_q) continue;
+      const size_t out_row = (size_t)n * a.s_q + r;
+      if (tig == 0) {
+        a.m[out_row] = m_run[h] == kNegInf ? kNegInf : m_run[h] * a.scale;
+        a.l[out_row] = l_run[h];
+      }
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const float2 val = make_float2(oacc[4 * c + 2 * h],
+                                       oacc[4 * c + 2 * h + 1]);
+        *reinterpret_cast<float2*>(a.o + out_row * D + c * 8 + 2 * tig) =
+            val;
+      }
+    }
+  }
+}
+
+#undef SR_REGS32
+#undef SR_REGS64
+#undef SR_F8
+
+// --------------------------------------------------------------- float32
+
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kBf16Threads = 128;
 constexpr int kF32Threads = 256;
 
 struct Args {
@@ -74,13 +623,6 @@ struct Args {
   float scale;
 };
 
-// exp(x - m) with exp(0) exactly 1: a fully masked row must give
-// l == s_k exactly, whatever the approximate exponential returns at 0.
-__device__ __forceinline__ float exp_diff(float x, float m) {
-  const float d = x - m;
-  return d == 0.f ? 1.f : __expf(d);
-}
-
 // Scaled, masked score of local (row, col); -INFINITY marks a key past
 // s_k, which the row max ignores and p turns into 0.
 __device__ __forceinline__ float mask_score(float s, int row, int col,
@@ -89,239 +631,6 @@ __device__ __forceinline__ float mask_score(float s, int row, int col,
   s *= a.scale;
   if (a.causal && a.q_offset + row < a.k_offset + col) return kNegInf;
   return s;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a . b for one 16 x 8 f32 tile; a 16 x 16 bf16, b 16 x 8 bf16.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Rows [row0, row0 + 64) of a [n_rows, D] bf16 matrix into a padded
-// shared tile, 16 B per cp.async; rows past n_rows become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* tile,
-                                               const __nv_bfloat16* g,
-                                               int row0, int n_rows) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kBlockQ * kChunks; c += kBf16Threads) {
-    const int r = c / kChunks;
-    const int c8 = (c % kChunks) * 8;
-    const bool valid = row0 + r < n_rows;
-    const __nv_bfloat16* src =
-        g + (size_t)(valid ? row0 + r : 0) * D + c8;
-    cp_async16(tile + r * kStride + c8, src, valid);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBf16Threads)
-    attention_bf16(Args a) {
-  constexpr int kStride = D + 8;
-  constexpr int kKSteps = D / 16;      // k-steps of the score product
-  constexpr int kNTiles = kBlockK / 8;  // 8-key score tiles per warp
-  constexpr int kDTiles = D / 8;        // 8-column o tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockQ * kStride;
-  __nv_bfloat16* sV = sK + kBlockK * kStride;
-
-  const int n = blockIdx.x / a.n_q_tiles;
-  const int q0 = (blockIdx.x % a.n_q_tiles) * kBlockQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // row within an 8-row group
-  const int tig = lane & 3;  // column pair within a fragment
-  const int lrow = lane & 7;
-  const int lmat = lane >> 3;  // which 8 x 8 matrix lane addresses
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(a.q) + (size_t)n * a.s_q * D;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(a.k) + (size_t)n * a.s_k * D;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(a.v) + (size_t)n * a.s_k * D;
-
-  load_tile_bf16<D>(sQ, q, q0, a.s_q);
-  load_tile_bf16<D>(sK, k, 0, a.s_k);
-  cp_async_commit();
-  load_tile_bf16<D>(sV, v, 0, a.s_k);
-  cp_async_commit();
-
-  const int row = q0 + warp * 16 + g;  // rows row and row + 8
-  uint32_t qf[kKSteps][4];
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int t = 0; t < kDTiles; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // this thread's columns only
-
-  const int n_k_tiles = (a.s_k + kBlockK - 1) / kBlockK;
-  for (int t = 0; t < n_k_tiles; ++t) {
-    const int kbase = t * kBlockK;
-    const bool more = t + 1 < n_k_tiles;
-    cp_async_wait<1>();  // q and this K tile
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks)
-        ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lmat & 1) * 8 + lrow) *
-                                     kStride +
-                                 ks * 16 + (lmat >> 1) * 8);
-    }
-    float s[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kNTiles / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sK + (np * 16 + (lmat >> 1) * 8 + lrow) * kStride +
-                           ks * 16 + (lmat & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with sK
-    if (more) load_tile_bf16<D>(sK, k, kbase + kBlockK, a.s_k);
-    cp_async_commit();
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kbase + j * 8 + 2 * tig + (e & 1);
-        s[j][e] = mask_score(s[j][e], row + (e >> 1) * 8, col, a);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);
-      alpha[h] = exp_diff(m_run[h], m_new);
-      m_run[h] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float p = x == -INFINITY ? 0.f : exp_diff(x, m_run[e >> 1]);
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + rs[h];
-#pragma unroll
-    for (int t2 = 0; t2 < kDTiles; ++t2) {
-      acc[t2][0] *= alpha[0];
-      acc[t2][1] *= alpha[0];
-      acc[t2][2] *= alpha[1];
-      acc[t2][3] *= alpha[1];
-    }
-    // p, rounded to bf16, as the A fragments of p . v (16 keys each)
-    uint32_t pf[kNTiles / 2][4];
-#pragma unroll
-    for (int kk = 0; kk < kNTiles / 2; ++kk) {
-      pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-    cp_async_wait<1>();  // this V tile (the next K tile may still fly)
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kNTiles / 2; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < kDTiles / 2; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sV + (kk * 16 + (lmat & 1) * 8 + lrow) *
-                                      kStride +
-                                  dp * 16 + (lmat >> 1) * 8);
-        mma_bf16(acc[2 * dp], pf[kk], b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], pf[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with sV
-    if (more) load_tile_bf16<D>(sV, v, kbase + kBlockK, a.s_k);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-    const int r = row + h * 8;
-    if (r >= a.s_q) continue;
-    const size_t out_row = (size_t)n * a.s_q + r;
-    if (tig == 0) {
-      a.m[out_row] = m_run[h];
-      a.l[out_row] = l_run[h];
-    }
-#pragma unroll
-    for (int t2 = 0; t2 < kDTiles; ++t2) {
-      float2 val = make_float2(acc[t2][2 * h], acc[t2][2 * h + 1]);
-      *reinterpret_cast<float2*>(a.o + out_row * D + t2 * 8 + 2 * tig) =
-          val;
-    }
-  }
 }
 
 // float32: exact FMAs on the CUDA cores.  Thread (tr, tc) holds scores
@@ -453,21 +762,6 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, unsigned blocks,
-                   const Args& a, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, threads, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
-size_t smem_bf16() {
-  return (size_t)(kBlockQ + 2 * kBlockK) * (D + 8) * sizeof(__nv_bfloat16);
-}
-
 template <int D>
 size_t smem_f32() {
   return sizeof(float) * ((size_t)(kBlockQ + kBlockK) * (D + 1) +
@@ -475,13 +769,95 @@ size_t smem_f32() {
                           (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
 }
 
+// ----------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up in the libcuda that the
+// CUDA runtime has loaded (the library is not linked against it).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// [n, rows, d] bf16 as a 3-D map, boxes of 64 columns x 128 rows x 1
+// with 128-byte swizzle; rows past `rows` of a batch read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int n, int rows, int d) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {kPanelCols, kTileK, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        float* m, float* l, float* o, int n, int s_q,
+                        int s_k, int q_offset, int k_offset, int causal,
+                        float scale, cudaStream_t st) {
+  HopperArgs a;
+  if (!make_map(&a.tq, q, n, s_q, D) || !make_map(&a.tk, k, n, s_k, D) ||
+      !make_map(&a.tv, v, n, s_k, D))
+    return cudaErrorInvalidValue;
+  a.m = m;
+  a.l = l;
+  a.o = o;
+  a.n = n;
+  a.n_q_tiles = (s_q + kTileQ - 1) / kTileQ;
+  a.s_q = s_q;
+  a.s_k = s_k;
+  a.q_offset = q_offset;
+  a.k_offset = k_offset;
+  a.causal = causal;
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  const long long blocks = (long long)a.n_q_tiles * n;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = Layout<D>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attention_bf16<D><<<(unsigned)blocks, kHopperThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a, unsigned blocks, cudaStream_t st) {
+  const size_t smem = smem_f32<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_f32<D><<<blocks, kF32Threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Partials of q [n, s_q, d] against k, v [n, s_k, d] (contiguous, rows
 // 16-byte aligned) into m, l [n, s_q] and o [n, s_q, d] (float32).
 // dtype 0 = float32, 1 = bfloat16; d is 64 or 128.  Returns
-// cudaGetLastError() (0 on success); queued on `stream`, not
-// synchronised.
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue when a tensor
+// map cannot be built); queued on `stream`, not synchronised.
 extern "C" int sr_block_attention(const void* q, const void* k,
                                   const void* v, void* m, void* l, void* o,
                                   int n, int s_q, int s_k, int d,
@@ -489,13 +865,22 @@ extern "C" int sr_block_attention(const void* q, const void* k,
                                   float scale, int dtype, void* stream) {
   if (n <= 0 || s_q <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* fm = static_cast<float*>(m);
+  float* fl = static_cast<float*>(l);
+  float* fo = static_cast<float*>(o);
+  if (dtype == 1 && d == 64)
+    return launch_bf16<64>(q, k, v, fm, fl, fo, n, s_q, s_k, q_offset,
+                           k_offset, causal, scale, st);
+  if (dtype == 1 && d == 128)
+    return launch_bf16<128>(q, k, v, fm, fl, fo, n, s_q, s_k, q_offset,
+                            k_offset, causal, scale, st);
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
-  a.m = static_cast<float*>(m);
-  a.l = static_cast<float*>(l);
-  a.o = static_cast<float*>(o);
+  a.m = fm;
+  a.l = fl;
+  a.o = fo;
   a.n_q_tiles = (s_q + kBlockQ - 1) / kBlockQ;
   a.s_q = s_q;
   a.s_k = s_k;
@@ -503,20 +888,9 @@ extern "C" int sr_block_attention(const void* q, const void* k,
   a.k_offset = k_offset;
   a.causal = causal;
   a.scale = scale;
-  const long long blocks_ll = (long long)a.n_q_tiles * n;
-  if (blocks_ll > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)blocks_ll;
-  if (dtype == 1 && d == 64)
-    return launch(attention_bf16<64>, kBf16Threads, smem_bf16<64>(), blocks,
-                  a, st);
-  if (dtype == 1 && d == 128)
-    return launch(attention_bf16<128>, kBf16Threads, smem_bf16<128>(),
-                  blocks, a, st);
-  if (dtype == 0 && d == 64)
-    return launch(attention_f32<64>, kF32Threads, smem_f32<64>(), blocks, a,
-                  st);
-  if (dtype == 0 && d == 128)
-    return launch(attention_f32<128>, kF32Threads, smem_f32<128>(), blocks,
-                  a, st);
+  const long long blocks = (long long)a.n_q_tiles * n;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (dtype == 0 && d == 64) return launch_f32<64>(a, (unsigned)blocks, st);
+  if (dtype == 0 && d == 128) return launch_f32<128>(a, (unsigned)blocks, st);
   return cudaErrorInvalidValue;
 }

@@ -35,10 +35,10 @@ import torch
 from sparkrdma_tpu_torch import _build
 
 NEG_INF = -1e30
-BLOCK_Q = 64    # query rows per CUDA block
-BLOCK_K = 64    # keys per step of its loop over the K/V block
+BLOCK_Q = 128   # query rows per CUDA block (bfloat16 kernel)
+BLOCK_K = 128   # keys per step of its loop over the K/V block
 D_HEADS = (64, 128)
-KERNEL_ITEM = "ROADMAP.md, 'Next, in order', item 1 (kernel redesigns)"
+KERNEL_ITEM = "ROADMAP.md, 'Next, in order', item 1 (d)"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = _build.LaunchCounter("block_attention")
@@ -138,9 +138,11 @@ def block_attention(
     q and of k, used by the causal mask.  ``scale`` defaults to
     ``1 / sqrt(d)``.  ``block_q`` and ``block_k`` are the kernel's tile
     (query rows per CUDA block, keys per step of its loop); it runs the
-    (64, 64) tile only, and any other asks raise on every device.
-    CUDA tensors (bfloat16 or float32, d 64 or 128) run the kernel;
-    CPU tensors run :func:`block_attention_plain`.
+    (128, 128) tile only, and any other asks raise on every device (the
+    float32 kernel keeps 64-row tiles inside; the tile changes no
+    result beyond rounding).  CUDA tensors (bfloat16 or float32, d 64
+    or 128) run the kernel; CPU tensors run
+    :func:`block_attention_plain`.
     """
     _check(q, k, v)
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):

@@ -3,11 +3,13 @@
 The forward fills and segmented scans of ``ops/segment.py`` are all one
 associative recurrence over (flag, columns) tuples (see ``_combine``).
 On a CUDA tensor :func:`scan_flagged` runs the hand-written kernel of
-``csrc/flagged_scan.cu`` (reduce-then-scan: CUDA blocks, unlike a TPU
-grid, run in no order, so a carried sum needs a scan of tile
-aggregates).  On a CPU tensor it runs :func:`scan_flagged_plain`, the
-log-step loop of ``segment.py`` written for all four kinds, which is
-also what the kernel is held against on the card.  There is no size or
+``csrc/flagged_scan.cu``: one pass with decoupled look-back (CUDA
+blocks, unlike a TPU grid, run in no order, so each tile of
+:func:`tile_elems` elements folds in the aggregates its predecessors
+publish, earliest first).  On a CPU tensor it runs
+:func:`scan_flagged_plain`, the log-step loop of ``segment.py`` written
+for all four kinds, which is also what the kernel is held against on
+the card.  There is no size or
 dtype gate: a CUDA tensor always goes to the kernel, and a column the
 kernel does not take raises.
 
@@ -37,6 +39,12 @@ _DTYPE_CODE = {
 _U32_MASK = (1 << 32) - 1
 
 LAUNCHES = _build.LaunchCounter("flagged_scan")
+
+
+def tile_elems(n_cols: int, all_int32: bool) -> int:
+    """Elements per tile of the kernel (``sr_flagged_scan_tile``): 8192
+    for one int32 column, 4096 otherwise."""
+    return 8192 if all_int32 and n_cols == 1 else 4096
 
 
 def identity(kind: str, dtype: torch.dtype):
@@ -127,12 +135,20 @@ def scan_flagged_plain(
     return f, outs
 
 
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` 16-byte aligned, as the kernel's vector loads need (a view
+    such as ``x[1:]`` may start anywhere)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _scan_cuda(kind, flag, cols):
     """Launch the kernel.  A ``flag`` of None means no segment heads:
     the kernel then reads no flag and writes none (returned as None)."""
     for t in (flag, *cols):
         if t is not None and not t.is_contiguous():
             raise ValueError("scan_flagged takes contiguous tensors")
+    flag = None if flag is None else _aligned16(flag)
+    cols = [_aligned16(c) for c in cols]
     lib = _build.load()
     dev = cols[0].device
     n = int(cols[0].shape[0])
@@ -141,10 +157,10 @@ def _scan_cuda(kind, flag, cols):
     outs = [torch.empty_like(c) for c in cols]
     if n == 0:
         return out_flag, outs
-    tile = lib.sr_flagged_scan_tile()
-    n_tiles = -(-n // tile)
-    scratch = torch.empty((1 + MAX_COLS) * n_tiles, dtype=torch.int64,
-                          device=dev)
+    # tile counter, status words and published aggregates; the call
+    # zeroes the counter and the status words
+    scratch = torch.empty(lib.sr_flagged_scan_scratch_words(n),
+                          dtype=torch.int64, device=dev)
     pad = [None] * (MAX_COLS - len(cols))
     ins = [c.data_ptr() for c in cols] + pad
     outp = [o.data_ptr() for o in outs] + pad

@@ -16,6 +16,8 @@ and o keeps rtol and atol 1e-4 relative to its scale (bf16 inputs are
 exact in float32; only summation order differs).
 """
 
+import importlib
+
 import jax
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ import jax.numpy as jnp
 
 from sparkrdma_tpu.ops import attention as jattn
 from sparkrdma_tpu_torch.ops import attention as tattn
+
+# the module: the models package exports a function of the same name
+tring = importlib.import_module("sparkrdma_tpu_torch.models.ring_attention")
 
 M_TOL = dict(rtol=1e-5)
 O_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -151,7 +156,7 @@ def test_default_scale_is_inverse_sqrt_d():
      (((8,), (8,), (8,)), {}),
      (((2, 4, 8), (3, 4, 8), (3, 4, 8)), {}),
      (((4, 8), (4, 8), (4, 8)), dict(block_q=32)),
-     (((4, 8), (4, 8), (4, 8)), dict(block_k=128))],
+     (((4, 8), (4, 8), (4, 8)), dict(block_k=256))],
 )
 def test_refuses_bad_shapes_and_tiles(shapes, kw):
     q, k, v = (torch.zeros(s) for s in shapes)
@@ -164,3 +169,88 @@ def test_refuses_mixed_dtypes():
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="dtypes differ"):
         tattn.block_attention(x, x, x.to(torch.bfloat16))
+
+
+# Causal blocks whose 128-row q tiles (BLOCK_Q) straddle the diagonal:
+# name: (s_q, s_k, q_offset, k_offset)
+STRADDLE = {
+    "q_ahead_200": (300, 500, 200, 0),
+    "k_ahead_70": (300, 500, 0, 70),      # rows 0..69 see no key
+    "k_past_q_block": (300, 500, 0, 400),  # every row sees no key
+    "ring_diagonal_hop": (256, 384, 256, 256),
+}
+
+
+def _visited_keys(q0, q1, s_k, qo, ko):
+    """Keys the CUDA kernel visits for q rows [q0, q1): a prefix of
+    whole BLOCK_K tiles when every row sees key 0, else every key."""
+    if qo + q0 < ko:  # a row masked throughout needs every tile
+        return s_k
+    c_max = qo + q1 - 1 - ko  # the last key any row of the tile sees
+    return min(s_k, (c_max // tattn.BLOCK_K + 1) * tattn.BLOCK_K)
+
+
+@pytest.mark.parametrize("name", sorted(STRADDLE))
+def test_causal_tile_skip_is_exact(name):
+    """The partials over the visited K prefix, folded with those over the
+    skipped K tiles, equal the partials over the whole block: the skipped
+    part is all NEG_INF, so its beta is 0 and m and l are unchanged."""
+    s_q, s_k, qo, ko = STRADDLE[name]
+    q, k, v = (torch.from_numpy(x) for x in _qkv(None, s_q, s_k, 32, seed=21))
+    kw = dict(causal=True, scale=1 / np.sqrt(32))
+    skipped_any = False
+    for q0 in range(0, s_q, tattn.BLOCK_Q):
+        q1 = min(q0 + tattn.BLOCK_Q, s_q)
+        qt = q[q0:q1]
+        full = tattn.block_attention_plain(qt, k, v, qo + q0, ko, **kw)
+        n_vis = _visited_keys(q0, q1, s_k, qo, ko)
+        if n_vis == s_k:
+            continue
+        skipped_any = True
+        vis = tattn.block_attention_plain(qt, k[:n_vis], v[:n_vis], qo + q0,
+                                          ko, **kw)
+        skip = tattn.block_attention_plain(qt, k[n_vis:], v[n_vis:],
+                                           qo + q0, ko + n_vis, **kw)
+        assert bool((skip[0] == tattn.NEG_INF).all())
+        assert bool((vis[0] > tattn.NEG_INF).all())
+        beta = torch.exp(skip[0] - torch.maximum(vis[0], skip[0]))
+        assert bool((beta == 0).all())
+        m, l, o = tring.fold_partials(*vis, *skip)
+        assert torch.equal(m, full[0]) and torch.equal(m, vis[0])
+        assert torch.equal(l, vis[1])
+        np.testing.assert_allclose(l.numpy(), full[1].numpy(), rtol=1e-6)
+        np.testing.assert_allclose(o.numpy(), full[2].numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    # only the block whose every row is masked throughout skips nothing
+    assert skipped_any == (name != "k_past_q_block")
+
+
+@pytest.mark.parametrize("name", ["k_ahead_70", "k_past_q_block"])
+def test_rows_masked_throughout_keep_the_full_sum(name):
+    """Rows that see no key: m == NEG_INF, l == s_k and o == sum v over
+    every key, which is why their q tile visits every K tile (or, when
+    the whole tile is masked, the kernel skips only the q.k^T product)."""
+    s_q, s_k, qo, ko = STRADDLE[name]
+    q, k, v = (torch.from_numpy(x) for x in _qkv(None, s_q, s_k, 32, seed=22))
+    m, l, o = tattn.block_attention(q, k, v, qo, ko, causal=True)
+    dead = (qo + torch.arange(s_q)) < ko
+    assert bool(dead.any())
+    assert bool((m[dead] == tattn.NEG_INF).all())
+    assert bool((l[dead] == s_k).all())
+    np.testing.assert_allclose(
+        o[dead].numpy(),
+        np.broadcast_to(v.sum(0).numpy(), o[dead].shape), rtol=1e-5,
+        atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("name", sorted(STRADDLE))
+def test_straddling_tiles_match_jax(name, impl):
+    s_q, s_k, qo, ko = STRADDLE[name]
+    q, k, v = _qkv(None, s_q, s_k, 32, seed=23 + len(name))
+    kw = dict(q_offset=qo, k_offset=ko, causal=True)
+    # one q block and K blocks of about 128 keys keep interpret mode fast
+    blocks = dict(block_q=s_q, block_k=128) if impl == "pallas" else {}
+    want = tuple(np.asarray(x) for x in jattn.block_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), impl=impl, **blocks, **kw))
+    _close(_port(q, k, v, **kw), want)

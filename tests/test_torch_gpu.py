@@ -107,6 +107,43 @@ def test_cumsum_kernel_without_flags_on_card(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+def test_scan_tile_matches_the_kernel(cuda_device):
+    lib = _build.load()
+    for n_cols in (1, 2, 3):
+        for i32 in (True, False):
+            assert lib.sr_flagged_scan_tile(n_cols, i32) == \
+                tscan.tile_elems(n_cols, i32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fill", "add", "min", "max"])
+def test_scan_kernel_many_tiles_on_card(cuda_device, kind):
+    """2^24 + 17 elements: 2049 tiles for one int32 column and 4097 for
+    more, so tiles fold long runs of their predecessors' aggregates
+    before they meet an inclusive prefix (flags at 1e-4, so most tiles
+    hold none); 1-3 int32 columns and a mixed int32/int64 set."""
+    rng = np.random.default_rng(10)
+    n = (1 << 24) + 17
+    flag = torch.from_numpy(rng.random(n) < 1e-4).to(cuda_device)
+    cols = [torch.from_numpy(rng.integers(I32.min, I32.max, n,
+                                          dtype=np.int32)).to(cuda_device)
+            for _ in range(3)]
+    sets = [cols[:1], cols[:2], cols, [cols[0], cols[1].long() << 20]]
+    for cs in sets:
+        gf, gx = tscan.scan_flagged(kind, flag, cs)
+        wf, wx = tscan.scan_flagged_plain(kind, flag, cs)
+        assert torch.equal(gf, wf)
+        m = wf if kind == "fill" else torch.ones_like(wf)
+        for g, w in zip(gx, wx):
+            assert torch.equal(g[m], w[m])
+    if kind == "add":
+        got = tscan.cumsum_1d(cols[0])
+        _f, (want,) = tscan.scan_flagged_plain(
+            "add", torch.zeros_like(flag), cols[:1])
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_kernels_count_their_launches(cuda_device):
     _build.reset_launch_counts()
     k = torch.arange(512, dtype=torch.int32, device=cuda_device)
@@ -125,7 +162,7 @@ def _close_partials(got, want, dtype):
     kernel's fast exponential and its order of summation).  o: within
     1e-4 of its largest magnitude in float32; in bfloat16 within 2^-7 of
     it, because the kernel rounds p to bfloat16 against the running max
-    of each 64-key tile and the plain version against the row max (one
+    of each 128-key tile and the plain version against the row max (one
     bfloat16 rounding, 2^-9 relative, per term of the sum)."""
     (m, l, o), (wm, wl, wo) = got, want
     masked = wm == tattn.NEG_INF
@@ -178,6 +215,33 @@ def test_attention_kernel_masked_rows_on_card(cuda_device, dtype):
         want = tattn.block_attention_plain(q, k, v, qo, ko, True,
                                            1.0 / 128 ** 0.5)
         _close_partials(got, want, dtype)
+
+
+# bf16, causal: (n, s_q, s_k, q_offset, k_offset)
+EDGE_CASES = [
+    (1, 300, 500, 200, 0),     # 128-row q tiles straddle the diagonal
+    (33, 130, 257, 0, 0),      # many heads; s_q, s_k not multiples of 128
+    (2, 300, 500, 0, 70),      # rows 0..69 masked throughout
+    (3, 200, 300, 0, 1000),    # the K block wholly in the future
+    (2, 256, 384, 256, 256),   # a ring hop on the diagonal
+    (1, 513, 129, 1000, 300),  # every row past every key
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_attention_kernel_edges_on_card(cuda_device, case, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, s_q, s_k, qo, ko = case
+    q, k, v = _qkv_cuda(n, s_q, s_k, d, torch.bfloat16, cuda_device,
+                        s_q + s_k + d)
+    got = tattn.block_attention(q, k, v, qo, ko, True)
+    want = tattn.block_attention_plain(q, k, v, qo, ko, True, 1.0 / d ** 0.5)
+    _close_partials(got, want, torch.bfloat16)
+    dead = (qo + torch.arange(s_q, device=cuda_device)) < ko
+    assert bool((got[0][:, dead] == tattn.NEG_INF).all())
+    assert bool((got[1][:, dead] == s_k).all())
 
 
 @pytest.mark.gpu

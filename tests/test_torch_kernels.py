@@ -13,6 +13,7 @@ tests/test_torch_gpu.py holds each CUDA kernel against its plain
 version on the card.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -269,3 +270,98 @@ def test_sort_perms_match_np_lexsort(shape, key_dtype, val_dtype):
         want = np.lexsort((v, inv, k))
     # both orders are stable, so the permutations are identical
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+_U32 = (1 << 32) - 1
+
+
+def _lb_tile(dtype):
+    return tscan.tile_elems(1, dtype == "int32")
+
+
+def _lb_flags(pattern, n, t, rng):
+    if pattern == "none":
+        return np.zeros(n, bool)
+    if pattern == "all":
+        return np.ones(n, bool)
+    f = np.zeros(n, bool)
+    if pattern == "tile_starts":
+        f[::t] = True
+    elif pattern == "tile_ends":
+        f[t - 1::t] = True
+    else:  # random at 1e-3
+        f = rng.random(n) < 1e-3
+    return f
+
+
+def _lb_values(dtype, n, rng):
+    if dtype == "int32":
+        return rng.integers(I32.min, I32.max, n, dtype=np.int32,
+                            endpoint=True)
+    if dtype == "int64":
+        return rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+    if dtype == "uint32":
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    return rng.standard_normal(n).astype(np.float32)
+
+
+def _look_back_composed(kind, flag, x, t):
+    """The kernel's order of composition: each tile of ``t`` elements
+    scanned alone, its exclusive prefix the fold of its predecessors'
+    aggregates taken nearest first with the earlier operand always on
+    the left (the look-back), then folded in as the earlier operand of
+    every position of the tile.  uint32 computes in int64 and wraps."""
+    u32 = x.dtype == torch.uint32
+    n = flag.shape[0]
+    scans = [tscan.scan_flagged_plain(kind, flag[i:i + t], [x[i:i + t]])
+             for i in range(0, n, t)]
+    if u32:
+        scans = [(f, [c.to(torch.int64)]) for f, (c,) in scans]
+    aggs = [(f[-1:], [c[-1:]]) for f, (c,) in scans]
+    out_f, out_x = [scans[0][0]], [scans[0][1][0]]
+    for i in range(1, len(scans)):
+        pf, pxs = aggs[i - 1]
+        for j in range(i - 2, -1, -1):  # further back = earlier operand
+            pf, pxs = tscan._combine(kind, aggs[j][0], aggs[j][1], pf, pxs)
+        if u32:
+            pxs = [c & _U32 for c in pxs]
+        f, xs = scans[i]
+        f, (c,) = tscan._combine(kind, pf.expand(f.shape),
+                                 [pxs[0].expand(xs[0].shape)], f, xs)
+        out_f.append(f)
+        out_x.append(c & _U32 if u32 else c)
+    got = torch.cat(out_x)
+    return torch.cat(out_f), got.to(torch.uint32) if u32 else got
+
+
+@pytest.mark.parametrize(
+    "flags", ["none", "all", "tile_starts", "tile_ends", "random"])
+@pytest.mark.parametrize("dtype", ["int32", "int64", "uint32", "float32"])
+@pytest.mark.parametrize("kind", ["fill", "add", "min", "max"])
+def test_look_back_order_matches_whole_scan_and_pallas(kind, dtype, flags):
+    """Tile scans folded in the look-back's order equal the whole-array
+    plain scan and JAX's scan_flagged (interpret mode): integers bit for
+    bit, float32 ``add`` within the card tests' tolerance (sums taken in
+    another order), ``fill`` under the returned flag."""
+    rng = np.random.default_rng(len(kind) * 7 + len(dtype) + len(flags))
+    t = _lb_tile(dtype)
+    n = 3 * t + 123  # three whole tiles and a ragged one
+    flag = _lb_flags(flags, n, t, rng)
+    x = _lb_values(dtype, n, rng)
+    tf, tx = _t(flag, x)
+    got_f, got = _look_back_composed(kind, tf, tx, t)
+    whole_f, (whole,) = tscan.scan_flagged_plain(kind, tf, [tx])
+    with jax.enable_x64(dtype == "int64"):
+        jf, (jx,) = jscan.scan_flagged(
+            kind, jnp.asarray(flag), (jnp.asarray(x),), interpret=True)
+        jf, jx = np.asarray(jf), np.asarray(jx)
+    assert jx.dtype == x.dtype
+    np.testing.assert_array_equal(got_f.numpy(), whole_f.numpy())
+    np.testing.assert_array_equal(got_f.numpy(), jf)
+    m = jf if kind == "fill" else np.ones(n, bool)
+    for want in (whole.numpy(), jx):
+        if dtype == "float32" and kind == "add":
+            np.testing.assert_allclose(got.numpy()[m], want[m], rtol=1e-5,
+                                       atol=1e-4)
+        else:
+            np.testing.assert_array_equal(got.numpy()[m], want[m])
