@@ -35,7 +35,12 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-VECTOR_OPS_PER_S = 67e12    # non-tensor float32 rate; int32 ALU ops use it
+# int32 ALU work: 64 int32 lanes per SM (against 128 float32 lanes), 132
+# SMs at the 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# instructions of one compare-exchange of (key, value) pairs: at least
+# one compare and four selects
+CMPEX_OPS = 5
 SORT_N = 1 << 24            # bench.py's 8 B TeraSort shape
 WIDE_N = 1 << 25            # HiBench TeraSort "large": 32 M 100 B records
 WIDE_WORDS = 24             # 4 B key + 96 B payload
@@ -109,9 +114,9 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_int32_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / VECTOR_OPS_PER_S * 1e3
+    t_ops = n_int32_ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -213,14 +218,16 @@ def _sass_counts(_build, ops=("HGMMA", "UTMALDG", "HMMA")):
 
 
 def phase_build(_build):
-    """Build the kernels, print the ptxas lines of kernels 1 and 3, and
-    check in the SASS that kernel 3's bfloat16 path runs on wgmma
-    (HGMMA) fed by TMA (UTMALDG), with no mma.sync (HMMA) left."""
+    """Build the kernels, print the ptxas lines of kernels 1, 2 and 3
+    (registers, shared memory, spills), and check in the SASS that
+    kernel 3's bfloat16 path runs on wgmma (HGMMA) fed by TMA (UTMALDG),
+    with no mma.sync (HMMA) left."""
     t0 = time.monotonic()
     _build.load()
     secs = time.monotonic() - t0
     for src, name, used, spill in _ptxas_rows(_build.build_log()):
-        if src in ("flagged_scan.cu", "block_attention.cu"):
+        if src in ("flagged_scan.cu", "bitonic_block_sort.cu",
+                   "block_attention.cu"):
             print(f"# ptxas {src} {name}: {used} | {spill}")
     sass = {k: v for k, v in _sass_counts(_build).items()
             if "attention_bf16" in k}
@@ -248,14 +255,49 @@ def _adversarial(torch, case, n, gen, dev):
                          dtype=torch.int32)  # few distinct keys
 
 
+def device_kernels(torch, fn):
+    """Names of the device kernels that one call of ``fn`` launches
+    (torch.profiler; copies and memsets left out), or None where the
+    profiler reports no device activity."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if "CUDA" in str(getattr(e, "device_type", ""))]
+    if not names:
+        return None
+    return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+
+
+def _block_sort_bounds(n, block_rows):
+    """Kernel 2's least time on n pairs: bytes (8 B read and 8 B
+    written per pair) and operations (B/2 * L(L+1)/2 compare-exchanges
+    per block of B = 2^L pairs, CMPEX_OPS int32 instructions each)."""
+    log_b = (block_rows * 128).bit_length() - 1
+    compares = n // 2 * log_b * (log_b + 1) // 2
+    t_bytes = 16 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = CMPEX_OPS * compares / INT32_OPS_PER_S * 1e3
+    return t_bytes, t_ops
+
+
 def phase_block_sort(torch, sk_mod, gen, dev):
-    """Kernel 2 against its plain version, bit for bit."""
+    """Kernel 2 against its plain version, bit for bit: one CTA with the
+    tile cut to the block (block_rows 1), clusters of 8 and 16 (512,
+    1024), a cluster of 16 with global passes beyond it (2048); its
+    launch shape, its device kernels per call, and its time beside both
+    bounds and torch.sort per block."""
     worst = 0
     cases = [("random", SORT_N, 512)] + [
         (c, 1 << 22, br)
         for c in ("all_equal", "int32_extremes", "reversed", "few_distinct")
         for br in (512, 1024)
-    ]
+    ] + [(c, 1 << 22, br) for c in ("random", "few_distinct")
+         for br in (1, 2048)]
     for case, n, br in cases:
         k = _adversarial(torch, case, n, gen, dev)
         v = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
@@ -274,19 +316,37 @@ def phase_block_sort(torch, sk_mod, gen, dev):
               bit_exact=True)
     k = _adversarial(torch, "random", SORT_N, gen, dev)
     v = torch.arange(SORT_N, dtype=torch.int32, device=dev)
-    B = 512 * 128
-    ms = cuda_ms(lambda: sk_mod.sort_pairs_blocks(k, v, block_rows=512))
-    plain = cuda_ms(lambda: sk_mod.block_sort_plain(k, v, block_rows=512),
-                    iters=2)
-    lib = cuda_ms(lambda: torch.sort(k.view(-1, B), dim=1))
-    log_b = B.bit_length() - 1
-    compares = SORT_N // 2 * log_b * (log_b + 1) // 2
-    b_ms, b_by = bound_ms(16 * SORT_N, compares)
-    phase("block_sort_time", n=SORT_N, block_rows=512, ms=ms, plain_ms=plain,
-          library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-          gb_per_s=16 * SORT_N / ms / 1e6)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by)
+    for br in (512, 1024, 2048):
+        shape = sk_mod.cluster_shape(br)
+        names = device_kernels(
+            torch, lambda: sk_mod.sort_pairs_blocks(k, v, block_rows=br))
+        if br <= 1024:
+            require(names is not None and len(names) == 1,
+                    f"sort_pairs_blocks at block_rows {br} launched "
+                    f"{names} on the device, not one kernel")
+        phase("block_sort_shape", block_rows=br, **shape,
+              device_kernels_per_call=(len(names) if names is not None
+                                       else "not measured"),
+              kernels=sorted(set(names or []))[:4])
+    result = None
+    for br in (512, 1024):
+        B = br * 128
+        ms = cuda_ms(lambda: sk_mod.sort_pairs_blocks(k, v, block_rows=br),
+                     iters=10)
+        plain = cuda_ms(lambda: sk_mod.block_sort_plain(k, v, block_rows=br),
+                        iters=2)
+        lib = cuda_ms(lambda: torch.sort(k.view(-1, B), dim=1), iters=10)
+        t_bytes, t_ops = _block_sort_bounds(SORT_N, br)
+        b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+        phase("block_sort_time", n=SORT_N, block_rows=br, ms=ms,
+              plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+              bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+              vs_library=lib / ms, gb_per_s=16 * SORT_N / ms / 1e6)
+        if result is None:
+            result = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                          bytes_bound_ms=t_bytes, ops_bound_ms=t_ops)
+    return result
 
 
 def phase_scan(torch, scan, gen, dev):
@@ -839,7 +899,11 @@ def main(argv=None) -> int:
     for k in kernels:
         require(all(isinstance(k[f], (int, float)) and math.isfinite(k[f])
                     for f in ("ms", "plain_ms", "bound_ms")), "bad timing")
-    out({"kernels": [{f: k[f] for f in keys_order} for k in kernels]})
+    # the contract's keys first, then any a kernel adds (kernel 2: both
+    # of its bounds)
+    out({"kernels": [{**{f: k[f] for f in keys_order},
+                      **{f: x for f, x in k.items() if f not in keys_order}}
+                     for k in kernels]})
     print(CARD["smi"], flush=True)
     out({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

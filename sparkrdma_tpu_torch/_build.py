@@ -152,6 +152,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sr_bitonic_block_sort.argtypes = [p, p, p, p, ll, i, p]
     lib.sr_bitonic_block_sort.restype = i
+    lib.sr_bitonic_block_sort_shape.argtypes = [i, p]
+    lib.sr_bitonic_block_sort_shape.restype = i
     lib.sr_flagged_scan.argtypes = [
         i, p, p, i, p, p, p, p, p, p, i, i, i, ll, p, p,
     ]

@@ -126,8 +126,8 @@ def block_attention(
     k_offset: int = 0,
     causal: bool = False,
     scale: Optional[float] = None,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: int = 512,
+    block_k: int = 1024,
 ) -> Partials:
     """Partial attention of ``q`` ``[s_q, d]`` against one K/V block
     ``[s_k, d]``, or of a batch ``[N, s, d]`` (the JAX package's
@@ -136,19 +136,17 @@ def block_attention(
 
     ``q_offset`` and ``k_offset`` are the global positions of row 0 of
     q and of k, used by the causal mask.  ``scale`` defaults to
-    ``1 / sqrt(d)``.  ``block_q`` and ``block_k`` are the kernel's tile
-    (query rows per CUDA block, keys per step of its loop); it runs the
-    (128, 128) tile only, and any other asks raise on every device (the
-    float32 kernel keeps 64-row tiles inside; the tile changes no
-    result beyond rounding).  CUDA tensors (bfloat16 or float32, d 64
-    or 128) run the kernel; CPU tensors run
-    :func:`block_attention_plain`.
+    ``1 / sqrt(d)``.  ``block_q`` and ``block_k`` are tiling hints, any
+    positive size, as in the JAX function: the CUDA kernel keeps its
+    (BLOCK_Q, BLOCK_K) tile and the plain version takes no tile, as the
+    JAX ``xla`` path does (a tile changes no result beyond the order of
+    summation).  A non-positive size raises ``ValueError``.  CUDA
+    tensors (bfloat16 or float32, d 64 or 128) run the kernel; CPU
+    tensors run :func:`block_attention_plain`.
     """
     _check(q, k, v)
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise NotImplementedError(
-            f"tile ({block_q}, {block_k}): the kernel runs "
-            f"({BLOCK_Q}, {BLOCK_K}) ({KERNEL_ITEM})")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"tile ({block_q}, {block_k}) must be positive")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cuda":

@@ -4,8 +4,10 @@
 :func:`sort_pairs_blocks` sorts (int32 key, int32 value) pairs within
 consecutive blocks of ``block_rows * 128`` with the bitonic XOR network
 of the Pallas kernel.  On a CUDA tensor it runs the hand-written kernel
-of ``csrc/bitonic_block_sort.cu``; on a CPU tensor it runs
-:func:`block_sort_plain`, the same network written with tensor ops.
+of ``csrc/bitonic_block_sort.cu`` (one launch for blocks of up to
+``block_rows = 1024``, over a thread-block cluster above 64); on a CPU
+tensor it runs :func:`block_sort_plain`, the same network written with
+tensor ops.
 Both match the Pallas kernel bit for bit, values included: the network,
 its direction bits and its tie rule make it a deterministic function.
 
@@ -18,6 +20,7 @@ outputs are identical, overflow included.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -90,6 +93,22 @@ def block_sort_plain(keys: torch.Tensor, vals: torch.Tensor,
             k = torch.where(want_mine, k, pk)
             v = torch.where(want_mine, v, pv)
     return k.reshape(-1), v.reshape(-1)
+
+
+def cluster_shape(block_rows: int = 1024) -> dict:
+    """The kernel's launch shape for blocks of ``block_rows * 128``
+    pairs on the current card: CTAs per thread-block cluster,
+    ``cudaOccupancyMaxActiveClusters`` for that cluster, threads and
+    pairs per CTA."""
+    B = block_rows * LANES
+    if block_rows < 1 or B & (B - 1):
+        raise ValueError(f"block size {B} must be a power of two")
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.sr_bitonic_block_sort_shape(B.bit_length() - 1, out),
+                 "bitonic_block_sort shape")
+    return dict(cluster=out[0], max_active_clusters=out[1],
+                threads=out[2], pairs_per_cta=out[3])
 
 
 def _block_sort_cuda(keys, vals, log_b: int):

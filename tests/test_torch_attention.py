@@ -155,14 +155,29 @@ def test_default_scale_is_inverse_sqrt_d():
      (((4, 8), (4, 16), (4, 16)), {}),
      (((8,), (8,), (8,)), {}),
      (((2, 4, 8), (3, 4, 8), (3, 4, 8)), {}),
-     (((4, 8), (4, 8), (4, 8)), dict(block_q=32)),
-     (((4, 8), (4, 8), (4, 8)), dict(block_k=256))],
+     (((4, 8), (4, 8), (4, 8)), dict(block_q=0)),
+     (((4, 8), (4, 8), (4, 8)), dict(block_k=-128))],
 )
 def test_refuses_bad_shapes_and_tiles(shapes, kw):
     q, k, v = (torch.zeros(s) for s in shapes)
-    err = NotImplementedError if kw else ValueError
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         tattn.block_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize(
+    "tile", [dict(block_q=32), dict(block_k=256),
+             dict(block_q=512, block_k=1024)])
+def test_any_positive_tile_matches_jax(tile, impl):
+    """block_q and block_k are tiling hints, as in the JAX function: any
+    positive size gives the JAX package's result for the same
+    arguments."""
+    n, s_q, s_k, d, qo, ko = CASES["s_q_ne_s_k"]
+    q, k, v = _qkv(n, s_q, s_k, d, seed=31)
+    kw = dict(q_offset=qo, k_offset=ko, causal=True)
+    want = tuple(np.asarray(x) for x in jattn.block_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), impl=impl, **tile, **kw))
+    _close(_port(q, k, v, **tile, **kw), want)
 
 
 def test_refuses_mixed_dtypes():

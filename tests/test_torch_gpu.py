@@ -47,8 +47,11 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("pattern", ["random", "dups_extremes", "equal"])
 def test_block_sort_kernel_matches_plain_on_card(cuda_device, pattern):
+    """One CTA with the tile cut to the block (1-32 rows), one full CTA
+    (64), clusters of 2, 8 and 16 (128, 512, 1024), and a cluster of 16
+    with global passes beyond it (2048)."""
     rng = np.random.default_rng(1)
-    for block_rows in (4, 512):
+    for block_rows in (1, 2, 64, 128, 512, 1024, 2048):
         n = 4 * block_rows * 128
         k = torch.from_numpy(_keys(pattern, n, rng)).to(cuda_device)
         v = torch.arange(n, dtype=torch.int32, device=cuda_device)
@@ -57,6 +60,26 @@ def test_block_sort_kernel_matches_plain_on_card(cuda_device, pattern):
         assert torch.equal(gk, wk) and torch.equal(gv, wv)
         assert torch.equal(gk, torch.sort(k.view(-1, block_rows * 128),
                                           dim=1).values.reshape(-1))
+
+
+@pytest.mark.gpu
+def test_block_sort_kernel_takes_unaligned_views_on_card(cuda_device):
+    n = 2 * 128 * 128
+    k = torch.randint(-99, 99, (n + 1,), dtype=torch.int32,
+                      device=cuda_device)[1:]
+    v = torch.arange(n + 1, dtype=torch.int32, device=cuda_device)[1:]
+    gk, gv = tsort.sort_pairs_blocks(k, v, block_rows=128)
+    wk, wv = tsort.block_sort_plain(k, v, block_rows=128)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.gpu
+def test_block_sort_cluster_shape_on_card(cuda_device):
+    for block_rows, cluster in ((32, 1), (64, 1), (128, 2), (256, 4),
+                                (512, 8), (1024, 16), (2048, 16)):
+        shape = tsort.cluster_shape(block_rows)
+        assert shape["cluster"] == cluster
+        assert shape["max_active_clusters"] >= 1
 
 
 @pytest.mark.gpu

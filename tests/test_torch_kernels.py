@@ -55,7 +55,7 @@ def _t(*arrays):
 @pytest.mark.parametrize(
     "pattern", ["random", "dups_extremes", "reversed", "equal"]
 )
-@pytest.mark.parametrize("block_rows", [4, 8])
+@pytest.mark.parametrize("block_rows", [1, 2, 4, 8, 16])
 def test_block_sort_bit_exact_vs_pallas(block_rows, pattern):
     rng = np.random.default_rng(block_rows * 31 + len(pattern))
     n = 3 * block_rows * 128
@@ -82,6 +82,241 @@ def test_block_sort_rejects_unsupported(bad):
     k = bad["k"]
     with pytest.raises(ValueError):
         tsort.sort_pairs_blocks(*_t(k, k), block_rows=bad["br"])
+
+
+# The schedule of csrc/bitonic_block_sort.cu, emulated in numpy.  Each
+# launch holds CTAs of 2^log_tile pairs in swizzled shared memory and
+# 2^log_regs registers per thread; runs of steps gather registers
+# through the kernel's layouts (index permutations), compare-exchanges
+# pair registers only, the cluster exchange gathers one local position
+# of every tile of the cluster, and distances beyond the cluster run as
+# global passes.  The kernel's constants are (5, 13, 4): 32 registers,
+# 8192 pairs per CTA, clusters of up to 16.
+KERNEL_CONSTANTS = (5, 13, 4)
+SCALED_CONSTANTS = (2, 5, 2)  # 4 registers, 8 threads, clusters of 4
+
+
+def _swz(x, log_regs):
+    return x ^ ((x >> log_regs) & ((1 << (log_regs - 1)) - 1))
+
+
+def _run_base(t, lo, log_regs):
+    return ((t >> lo) << (lo + log_regs)) | (t & ((1 << lo) - 1))
+
+
+def _reg_cmpex(rk, rv, a, b, up):
+    """The kernel's cmpex on register columns a (lower index) and b."""
+    ka, kb, va, vb = rk[..., a], rk[..., b], rv[..., a], rv[..., b]
+    sw = (ka > kb) == up
+    rk[..., a], rk[..., b] = np.where(sw, kb, ka), np.where(sw, ka, kb)
+    rv[..., a], rv[..., b] = np.where(sw, vb, va), np.where(sw, va, vb)
+
+
+def _is_permutation(idx, size):
+    flat = np.asarray(idx).reshape(-1)
+    return flat.size == size and np.unique(flat).size == size
+
+
+def _emulate_launch(gk, gv, consts, log_tile, log_c, stage_first,
+                    stage_last, log_b, kinds):
+    lr = consts[0]
+    R, T = 1 << lr, 1 << log_tile
+    nthr = T >> lr
+    n_cta = gk.size // T
+    t = np.arange(nthr)
+    cta = np.arange(n_cta)
+    tile_base = (cta << log_tile)[:, None]
+    # global -> shared: thread t copies x = i * threads + t
+    x = (np.arange(R)[:, None] * nthr + t).reshape(-1)
+    assert _is_permutation(_swz(x, lr), T)
+    sk = np.empty((n_cta, T), gk.dtype)
+    sv = np.empty((n_cta, T), gv.dtype)
+    sk[:, _swz(x, lr)] = gk.reshape(n_cta, T)[:, x]
+    sv[:, _swz(x, lr)] = gv.reshape(n_cta, T)[:, x]
+
+    def run(lo, steps):
+        base = _run_base(t, lo, lr)
+        p = _swz(base[:, None] | (np.arange(R) << lo), lr)  # [thread, reg]
+        assert _is_permutation(p, T)
+        rk, rv = sk[:, p], sv[:, p]
+        steps(rk, rv, base)
+        sk[:, p], sv[:, p] = rk, rv
+        kinds["transpose"] += 1
+
+    stage = stage_first
+    if stage_first == 1:  # stages 1..log_regs, x = t * R + r
+        def first(rk, rv, _base):
+            for s in range(1, lr + 1):
+                for j in range(s - 1, -1, -1):
+                    for r in range(R):
+                        if not r & (1 << j):
+                            up = ((r >> s) & 1) == 0 if s < lr \
+                                else (t & 1) == 0
+                            _reg_cmpex(rk, rv, r, r | (1 << j), up)
+                            kinds["register"] += 1
+        run(0, first)
+        stage = lr + 1
+    span = log_tile + log_c
+    C = 1 << log_c
+    P, per = R // C, T >> log_c
+    q = cta % C
+    for stage in range(stage, stage_last + 1):
+        top = min(stage - 1, span - 1)
+        if log_c and top >= log_tile:
+            xc = q[:, None, None] * per + np.arange(P)[:, None] * nthr + t
+            pos = np.broadcast_to(_swz(xc, lr).transpose(0, 2, 1)[..., None],
+                                  (n_cta, nthr, P, C))
+            src = np.broadcast_to((cta - q)[:, None, None, None]
+                                  + np.arange(C), (n_cta, nthr, P, C))
+            assert _is_permutation(src * T + pos, n_cta * T)
+            rk = sk[src, pos].reshape(n_cta, nthr, R)
+            rv = sv[src, pos].reshape(n_cta, nthr, R)
+            up = (stage == log_b) | (
+                ((((cta - q)[:, None] + np.arange(C)) << log_tile)
+                 >> stage) & 1 == 0)                          # [cta, C]
+            for jc in range(log_c - 1, -1, -1):
+                if jc <= top - log_tile:
+                    for p in range(P):
+                        for c in range(C):
+                            if not c & (1 << jc):
+                                _reg_cmpex(rk, rv, p * C + c,
+                                           p * C + c + (1 << jc),
+                                           up[:, c][:, None])
+                    kinds["cluster"] += 1
+            sk[src, pos] = rk.reshape(n_cta, nthr, P, C)
+            sv[src, pos] = rv.reshape(n_cta, nthr, P, C)
+        hi = min(top, log_tile - 1)
+        while hi >= 0:
+            lo = max(0, hi - (lr - 1))
+            assert stage > lo + lr - 1  # the direction is one per thread
+
+            def steps(rk, rv, base, lo=lo, hi=hi, stage=stage):
+                up = (stage == log_b) | ((((tile_base | base) >> stage)
+                                          & 1) == 0)
+                for jb in range(hi - lo, -1, -1):
+                    for r in range(R):
+                        if not r & (1 << jb):
+                            _reg_cmpex(rk, rv, r, r | (1 << jb), up)
+                    kinds["register"] += 1
+            run(lo, steps)
+            hi -= lr
+    gk.reshape(n_cta, T)[:, x] = sk[:, _swz(x, lr)]
+    gv.reshape(n_cta, T)[:, x] = sv[:, _swz(x, lr)]
+
+
+def _emulate_global_pass(gk, gv, stage, j, log_b, kinds):
+    p = np.arange(gk.size // 2)  # four neighbours per thread in the kernel
+    lo = ((p >> j) << (j + 1)) | (p & ((1 << j) - 1))
+    hi = lo + (1 << j)
+    up = (stage == log_b) | (((lo >> stage) & 1) == 0)
+    ka, kb, va, vb = gk[lo], gk[hi], gv[lo], gv[hi]
+    sw = (ka > kb) == up
+    gk[lo], gk[hi] = np.where(sw, kb, ka), np.where(sw, ka, kb)
+    gv[lo], gv[hi] = np.where(sw, vb, va), np.where(sw, va, vb)
+    kinds["global"] += 1
+
+
+def _emulate_block_sort(keys, vals, block_rows, consts):
+    """sr_bitonic_block_sort's launches on the CPU; returns the sorted
+    keys and values and how many steps of each kind ran."""
+    lr, max_tile, max_c = consts
+    log_b = (block_rows * 128).bit_length() - 1
+    log_tile = min(log_b, max_tile)
+    log_c = min(log_b - log_tile, max_c)
+    span = log_tile + log_c
+    kinds = dict.fromkeys(("register", "transpose", "cluster", "global"), 0)
+    gk, gv = keys.copy(), vals.copy()
+    _emulate_launch(gk, gv, consts, log_tile, log_c, 1, min(log_b, span),
+                    log_b, kinds)
+    for stage in range(span + 1, log_b + 1):
+        for j in range(stage - 1, span - 1, -1):
+            _emulate_global_pass(gk, gv, stage, j, log_b, kinds)
+        _emulate_launch(gk, gv, consts, log_tile, log_c, stage, stage,
+                        log_b, kinds)
+    return gk, gv, kinds
+
+
+@pytest.mark.parametrize(
+    "pattern", ["random", "dups_extremes", "reversed", "equal"]
+)
+@pytest.mark.parametrize(
+    "consts,block_rows",
+    [(SCALED_CONSTANTS, 4), (SCALED_CONSTANTS, 16), (KERNEL_CONSTANTS, 1),
+     (KERNEL_CONSTANTS, 16)],
+)
+def test_kernel_schedule_bit_exact_vs_plain_and_pallas(consts, block_rows,
+                                                       pattern):
+    """The kernel's schedule reaches every kind of step at the scaled
+    constants (register steps, shared-memory transposes, the cluster
+    exchange, global passes beyond the cluster) and gives the network's
+    bits, values included."""
+    rng = np.random.default_rng(block_rows * 7 + len(pattern))
+    n = 2 * block_rows * 128
+    k = _keys(pattern, n, rng)
+    v = rng.integers(I32.min, I32.max, n, dtype=np.int32)
+    got_k, got_v, kinds = _emulate_block_sort(k, v, block_rows, consts)
+    want_k, want_v = jsort.sort_pairs_blocks(
+        jnp.asarray(k), jnp.asarray(v), block_rows=block_rows,
+        interpret=True,
+    )
+    plain_k, plain_v = tsort.block_sort_plain(*_t(k, v), block_rows)
+    np.testing.assert_array_equal(got_k, np.asarray(want_k))
+    np.testing.assert_array_equal(got_v, np.asarray(want_v))
+    np.testing.assert_array_equal(got_k, plain_k.numpy())
+    np.testing.assert_array_equal(got_v, plain_v.numpy())
+    if consts == SCALED_CONSTANTS:
+        assert all(kinds.values()), kinds
+    else:  # one CTA: no cluster, no global pass
+        assert kinds["cluster"] == kinds["global"] == 0
+
+
+@pytest.mark.parametrize("block_rows", [512, 1024, 2048])
+def test_kernel_schedule_at_kernel_constants_vs_plain(block_rows):
+    """The main path's shapes at the kernel's own constants: a cluster
+    of 8 (block_rows 512), of 16 (1024), and of 16 plus global passes
+    (2048); bit for bit with the plain version."""
+    rng = np.random.default_rng(block_rows)
+    n = block_rows * 128
+    k = _keys("dups_extremes", n, rng)
+    v = rng.integers(I32.min, I32.max, n, dtype=np.int32)
+    got_k, got_v, kinds = _emulate_block_sort(k, v, block_rows,
+                                              KERNEL_CONSTANTS)
+    want_k, want_v = tsort.block_sort_plain(*_t(k, v), block_rows)
+    np.testing.assert_array_equal(got_k, want_k.numpy())
+    np.testing.assert_array_equal(got_v, want_v.numpy())
+    assert kinds["cluster"] > 0
+    assert (kinds["global"] > 0) == (block_rows > 1024)
+
+
+def _banks_distinct(x, log_regs=KERNEL_CONSTANTS[0]):
+    """Every warp's 8-byte (key, value) shared-memory accesses (x:
+    [threads], one access per thread), served per half warp, fall in
+    distinct pairs of banks: 16 distinct words modulo 16."""
+    b = _swz(np.asarray(x), log_regs).reshape(-1, 16) % 16
+    return all(np.unique(row).size == 16 for row in b)
+
+
+@pytest.mark.parametrize("lo", list(range(9)))
+def test_kernel_runs_are_free_of_bank_conflicts(lo):
+    lr, log_tile, _ = KERNEL_CONSTANTS
+    t = np.arange(1 << (log_tile - lr))
+    base = _run_base(t, lo, lr)
+    for r in range(1 << lr):
+        assert _banks_distinct(base | (r << lo))
+
+
+@pytest.mark.parametrize("log_c", [1, 2, 3, 4])
+def test_kernel_cluster_exchange_and_copies_are_free_of_bank_conflicts(
+        log_c):
+    lr, log_tile, _ = KERNEL_CONSTANTS
+    nthr = 1 << (log_tile - lr)
+    t = np.arange(nthr)
+    per = (1 << log_tile) >> log_c
+    for q in range(1 << log_c):
+        for p in range((1 << lr) >> log_c):
+            assert _banks_distinct(q * per + p * nthr + t)
+    for i in range(1 << lr):
+        assert _banks_distinct(i * nthr + t)
 
 
 def _canonical(keys, vals, valid):
