@@ -7,13 +7,22 @@ CUDA is absent.  The hand-written kernels of ``csrc/`` build with
 ``nvcc`` at first use (``_build.py``).
 
 The shuffle models run on one GPU: TeraSort (sortByKey, 8 B and wide
-records), the two-phase block sort engine, WordCount (reduceByKey) and
-keyed aggregation (aggregateByKey).  Sequence-parallel attention (ring
+records), the two-phase block sort engine, WordCount (reduceByKey),
+keyed aggregation (aggregateByKey), and the SQL-exchange models: hash
+and broadcast joins (inner, left outer, semi, anti), the fused
+broadcast join + aggregate, grouped top-k and the external
+(larger-than-memory) sort.  Sequence-parallel attention (ring
 and Ulysses) runs on a ``torch.distributed`` exchange group of any
 size, over the blockwise flash-attention kernel.
 """
 
 from sparkrdma_tpu_torch.models import (
+    JOIN_HOWS,
+    BroadcastJoinAggregator,
+    BroadcastJoiner,
+    ExternalTeraSorter,
+    GroupedTopK,
+    HashJoiner,
     KeyedAggregator,
     KeyStats,
     TeraSorter,
@@ -29,7 +38,13 @@ from sparkrdma_tpu_torch.ops.sort_kernel import (
 from sparkrdma_tpu_torch.parallel import ExchangeGroup, RingExchange
 
 __all__ = [
+    "BroadcastJoinAggregator",
+    "BroadcastJoiner",
     "ExchangeGroup",
+    "ExternalTeraSorter",
+    "GroupedTopK",
+    "HashJoiner",
+    "JOIN_HOWS",
     "KeyStats",
     "KeyedAggregator",
     "RingExchange",

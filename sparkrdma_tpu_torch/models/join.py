@@ -1,0 +1,284 @@
+"""Equi-joins on one GPU, the SQL-exchange workloads: the port of
+``sparkrdma_tpu/models/join.py``.
+
+The star-schema shape of TPC-DS q64/q72: a large FACT table joined to a
+DIMENSION table whose join keys are unique.
+
+- :class:`HashJoiner`, the exchange-shuffle join: both sides merge into
+  one packed (key, role, payload) stream, which one hash exchange moves
+  (the identity on one device), then each device probes its rows.
+- :class:`BroadcastJoiner`, the broadcast join: the dimension side is
+  replicated and only the fact side is sharded; no exchange.
+
+The probe is one sort keyed (key, role), role 0 = valid dimension, 1 =
+valid fact, 2 = invalid, so each key's run opens with its dimension
+row; then one forward fill (kernel 1's ``fill``, ``ops/scan_kernels.py``)
+carries the latest dimension (key, value) rightward, and a fact row
+matches iff the filled key equals its own.
+
+Transport words: both sides' keys and values ride one column each of
+4-byte words, or 8-byte words as soon as any key or value column is
+64-bit.  The JAX package carries them as uint32 / uint64; PyTorch has
+little uint32 arithmetic, so the port carries the same bits as int32 /
+int64 and sorts them in unsigned order (``ops/lexsort.py``).  Narrower
+integers and floats widen losslessly (bool, int8/16/32/64, uint8/16/32
+and float16/bfloat16/float32/float64 values; integer or bool keys);
+other dtypes raise.  The JAX package's ``check_no_silent_truncation`` has no
+counterpart (``models/_base.py``).
+
+Output rows are the probe layout with a found mask (1 only on matched
+fact rows); the host wrappers drop the rest per join variant.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from sparkrdma_tpu_torch.models._base import (
+    ExchangeModel,
+    quantize_padded_length,
+)
+from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_role
+from sparkrdma_tpu_torch.ops.scan_kernels import scan_flagged
+from sparkrdma_tpu_torch.parallel.device import require_one_device
+
+# role column: dimension rows sort before fact rows of the same key;
+# invalid (padding) rows sort last and never match
+_ROLE_DIM = 0
+_ROLE_FACT = 1
+_ROLE_INVALID = 2
+
+_INT_DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32,
+               torch.int64, torch.uint8, torch.uint16, torch.uint32)
+_FLOAT_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+_WORD = {4: torch.int32, 8: torch.int64}
+_FLOAT_WORD = {4: torch.float32, 8: torch.float64}
+
+
+def _transport_width(*cols) -> int:
+    """Transport word size: 8 bytes as soon as any key or value column
+    is 64-bit, else 4."""
+    return 8 if any(c.dtype.itemsize == 8 for c in cols) else 4
+
+
+def _key_u(k: torch.Tensor, width: int) -> torch.Tensor:
+    """Transport word of an integer key column: the bits of JAX's
+    ``k.astype(uint32 / uint64)``."""
+    if k.dtype not in _INT_DTYPES:
+        raise ValueError(f"join keys must be integers, got {k.dtype}")
+    if k.dtype.itemsize == width:
+        return k.view(_WORD[width])
+    return k.to(_WORD[width])
+
+
+def _pay_u(v: torch.Tensor, width: int) -> torch.Tensor:
+    """Lossless transport word of a value column: same-width dtypes
+    reinterpret their bits, narrower ints and floats widen first."""
+    if v.dtype not in _INT_DTYPES + _FLOAT_DTYPES:
+        raise ValueError(f"unsupported join value dtype {v.dtype}")
+    if v.dtype.itemsize == width:
+        return v.view(_WORD[width])
+    if v.dtype.is_floating_point:
+        return v.to(_FLOAT_WORD[width]).view(_WORD[width])
+    return v.to(_WORD[width])
+
+
+def _pay_from_u(u: np.ndarray, dtype, width: int) -> np.ndarray:
+    """Inverse of :func:`_pay_u` on host words."""
+    dtype = np.dtype(dtype)
+    if dtype.itemsize == width:
+        return u.view(dtype)
+    if np.issubdtype(dtype, np.floating):
+        return u.view(np.dtype(f"f{width}")).astype(dtype)
+    return u.astype(dtype)
+
+
+def _pack_sides(lk, lv, l_valid, rk, rv, r_valid):
+    """Merge fact and dimension columns into one (key, role, payload)
+    stream of transport words (facts first)."""
+    w = _transport_width(lk, rk, lv, rv)
+    ku = torch.cat([_key_u(lk, w), _key_u(rk, w)])
+    role = torch.cat([
+        torch.where(l_valid > 0, _ROLE_FACT, _ROLE_INVALID),
+        torch.where(r_valid > 0, _ROLE_DIM, _ROLE_INVALID),
+    ]).to(torch.int32)
+    pay = torch.cat([_pay_u(lv, w), _pay_u(rv, w)])
+    return ku, role, pay
+
+
+def _probe_fill(sk, srole, spay):
+    """Forward fill over a stream already sorted with each key's
+    dimension row first: carry each dimension row's (key, value)
+    rightward through kernel 1; a fact row matches iff the filled key
+    equals its own (a run with no dimension row inherits an earlier
+    run's fill, which the key test rejects; invalid rows never fill and
+    never match).  Returns ``(dim_val, found)``, found a bool mask true
+    exactly on matched fact rows.  Shared with the fused join+aggregate,
+    whose sort key differs."""
+    flag, (fkey, fval) = scan_flagged("fill", srole == _ROLE_DIM, (sk, spay))
+    found = (srole == _ROLE_FACT) & flag & (fkey == sk)
+    return fval, found
+
+
+def _probe_packed(ku, role, pay):
+    """Sort-merge probe over a packed stream: one sort keyed (key,
+    role), then :func:`_probe_fill`.  Returns ``(keys_u, fact_pay,
+    dim_pay, found, is_fact)``, found = 1 exactly on matched fact rows
+    and dim_pay 0 elsewhere."""
+    perm = perm_by_key_role(ku, role)
+    sk, srole, spay = ku[perm], role[perm], pay[perm]
+    fval, found_b = _probe_fill(sk, srole, spay)
+    fval = torch.where(found_b, fval, 0)
+    is_fact = (srole == _ROLE_FACT).to(torch.int32)
+    return sk, spay, fval, found_b.to(torch.int32), is_fact
+
+
+def _check_rows(what: str, n_left: int, n_right: int, lk, rk) -> None:
+    if lk.shape[0] != n_left or rk.shape[0] != n_right:
+        raise ValueError(
+            f"{what} step made for ({n_left}, {n_right}) rows got "
+            f"({lk.shape[0]}, {rk.shape[0]})"
+        )
+
+
+def make_hash_join_step(n_devices: int, n_left: int, n_right: int,
+                        capacity: int):
+    """The fused-exchange join step over [D * n_left] fact and
+    [D * n_right] dimension columns (keys, values, int32 0/1 validity):
+    both sides ride one hash exchange as a packed stream, then probe.
+    Returns fn(lk, lv, l_valid, rk, rv, r_valid) -> (keys_u, fact_pay,
+    dim_pay, found, is_fact, fill[1]); ``fill`` is the largest bucket
+    fill for the overflow retry (0 on one device)."""
+    require_one_device(n_devices, "The hash join")
+
+    def step(lk, lv, l_valid, rk, rv, r_valid):
+        _check_rows("hash join", n_left, n_right, lk, rk)
+        ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
+        fill = torch.zeros(1, dtype=torch.int32, device=ku.device)
+        return (*_probe_packed(ku, role, pay), fill)
+
+    return step
+
+
+def make_broadcast_join_step(n_devices: int, n_left: int, n_right_total: int):
+    """The broadcast join step: fact side [D * n_left] sharded,
+    dimension side [n_right_total] replicated.  Returns fn(lk, lv,
+    l_valid, rk, rv, r_valid) -> (keys_u, fact_pay, dim_pay, found,
+    is_fact)."""
+    require_one_device(n_devices, "The broadcast join")
+
+    def step(lk, lv, l_valid, rk, rv, r_valid):
+        _check_rows("broadcast join", n_left, n_right_total, lk, rk)
+        return _probe_packed(*_pack_sides(lk, lv, l_valid, rk, rv, r_valid))
+
+    return step
+
+
+#: join variants (Spark/SQL parity): inner keeps matched fact rows with
+#: the dim value; left_outer keeps EVERY fact row plus a matched mask;
+#: semi keeps matched fact rows without the dim value (left-semi,
+#: TPC-DS q16); anti keeps the UNmatched fact rows (left-anti, q94).
+JOIN_HOWS = ("inner", "left_outer", "semi", "anti")
+
+
+class HashJoiner(ExchangeModel):
+    """Exchange-shuffle join of (fact_keys, fact_vals) with a
+    unique-keyed (dim_keys, dim_vals); ``how`` picks the variant
+    (:data:`JOIN_HOWS`)."""
+
+    def __init__(self, device=None, capacity_factor: float = 1.6, **kw):
+        super().__init__(device, capacity_factor, **kw)
+
+    def join(self, fact_keys, fact_vals, dim_keys, dim_vals,
+             how: str = "inner"):
+        """inner -> (keys, fact_vals, dim_vals) for matching fact rows;
+        left_outer -> (keys, fact_vals, dim_vals, matched) for ALL fact
+        rows (dim_vals is 0 where unmatched); semi/anti -> (keys,
+        fact_vals) for matched/unmatched fact rows.  Input order is not
+        preserved."""
+        lk, lv = _as_columns(fact_keys, fact_vals)
+        rk, rv = _as_columns(dim_keys, dim_vals)
+        D = self.n_devices
+        lk, lv, l_valid, nl = _pad_to(lk, lv, D, self.quantize_shapes)
+        rk, rv, r_valid, nr = _pad_to(rk, rv, D, self.quantize_shapes)
+        placed = self._to_device(*(torch.from_numpy(x) for x in
+                                   (lk, lv, l_valid, rk, rv, r_valid)))
+
+        def attempt(factor: float):
+            # one capacity for the fused fact+dim stream
+            cap = self._capacity((nl + nr) // D, factor)
+            step = make_hash_join_step(D, nl // D, nr // D, cap)
+            *rows, fill = step(*placed)
+            return rows, int(fill.max()) > cap
+
+        rows = self._retry_with_factor(attempt)
+        return _mask_output(*rows, lk.dtype, lv.dtype, rv.dtype, how)
+
+
+class BroadcastJoiner(ExchangeModel):
+    """Broadcast join: the dimension side replicated to every device;
+    ``how`` picks the variant (:data:`JOIN_HOWS`)."""
+
+    def join(self, fact_keys, fact_vals, dim_keys, dim_vals,
+             how: str = "inner"):
+        """Same output contract as :meth:`HashJoiner.join`."""
+        lk, lv = _as_columns(fact_keys, fact_vals)
+        rk, rv = _as_columns(dim_keys, dim_vals)
+        D = self.n_devices
+        lk, lv, l_valid, nl = _pad_to(lk, lv, D, self.quantize_shapes)
+        r_valid = np.ones(rk.shape[0], np.int32)
+        step = make_broadcast_join_step(D, nl // D, rk.shape[0])
+        rows = step(*self._to_device(*(torch.from_numpy(x) for x in
+                                       (lk, lv, l_valid, rk, rv, r_valid))))
+        return _mask_output(*rows, lk.dtype, lv.dtype, rv.dtype, how)
+
+
+def _mask_output(sk, spay, fval, found, is_fact, key_dtype, lv_dtype,
+                 rv_dtype, how="inner"):
+    """Host-side join filter per variant, restoring the original dtypes
+    from the transport words."""
+    if how not in JOIN_HOWS:
+        raise ValueError(f"how must be one of {JOIN_HOWS}, got {how!r}")
+    sk, spay, fval, found, is_fact = (
+        t.cpu().numpy() for t in (sk, spay, fval, found, is_fact))
+    width = sk.dtype.itemsize
+    found_h = found > 0
+    if how in ("inner", "semi"):
+        mask = found_h
+    elif how == "left_outer":
+        mask = is_fact > 0
+    else:  # anti: real fact rows with no dimension match
+        mask = (is_fact > 0) & ~found_h
+    keys = sk.astype(np.dtype(key_dtype))[mask]
+    outl = _pay_from_u(spay, lv_dtype, width)[mask]
+    if how in ("semi", "anti"):
+        return keys, outl
+    outv = _pay_from_u(fval, rv_dtype, width)[mask]
+    if how == "left_outer":
+        return keys, outl, outv, found_h[mask]
+    return keys, outl, outv
+
+
+def _as_columns(keys, vals) -> Tuple[np.ndarray, np.ndarray]:
+    k = np.ascontiguousarray(np.asarray(keys))
+    v = np.ascontiguousarray(np.asarray(vals))
+    if k.shape != v.shape or k.ndim != 1:
+        raise ValueError("keys/vals must be equal-length 1-D arrays")
+    return k, v
+
+
+def _pad_to(k, v, d, quantize=True):
+    """Pad numpy columns to a multiple of ``d`` on the shape ladder
+    (``quantize_padded_length``) with an int32 validity column."""
+    n = k.shape[0]
+    total = quantize_padded_length(n, d) if quantize else n + ((-n) % d)
+    n_pad = total - n
+    valid = np.ones(total, np.int32)
+    if n_pad:
+        valid[n:] = 0
+        k = np.concatenate([k, np.zeros(n_pad, k.dtype)])
+        v = np.concatenate([v, np.zeros(n_pad, v.dtype)])
+    return k, v, valid, total

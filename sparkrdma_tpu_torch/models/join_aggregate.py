@@ -1,0 +1,193 @@
+"""Fused broadcast join + aggregation, one sort where q64/q72 plans two:
+the port of ``sparkrdma_tpu/models/join_aggregate.py``.
+
+TPC-DS q64/q72 plans end in ``fact JOIN dim -> aggregate``.  When the
+group key is a pure function of the join key (the key itself, its
+bucket, a date part), sorting the packed stream by (group key, join
+key, role) groups equal join keys inside contiguous group-key runs, so
+one sort serves both stages:
+
+  sort (gk, key, role, payload)       # ops/lexsort.py: two stable sorts
+  -> forward fill of dimension rows   # the join probe (join.py), kernel 1
+  -> per-run sum/count from two prefix sums and run-end differences
+  -> per-run min/max by segmented scans (kernel 1's min and max kinds)
+
+Outputs use the run-end layout of ``aggregate_by_key_local`` (entries
+where ``counts > 0``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from sparkrdma_tpu_torch.models._base import ExchangeModel
+from sparkrdma_tpu_torch.models.aggregate import KeyStats
+from sparkrdma_tpu_torch.models.join import (
+    _ROLE_INVALID,
+    _as_columns,
+    _check_rows,
+    _pack_sides,
+    _pad_to,
+    _probe_fill,
+)
+from sparkrdma_tpu_torch.ops.lexsort import perm_by_group_key_role
+from sparkrdma_tpu_torch.ops.scan_kernels import cumsum_1d
+from sparkrdma_tpu_torch.ops.segment import (
+    _ff_run_carry,
+    _prev_end,
+    segmented_scan,
+)
+from sparkrdma_tpu_torch.parallel.device import require_one_device
+
+GroupKeyFn = Callable[[torch.Tensor], torch.Tensor]
+AggValFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+_MASK32 = (1 << 32) - 1
+
+
+def _minmax_identities(dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float("inf"), float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max, info.min
+
+
+def _hook_view(word: torch.Tensor) -> torch.Tensor:
+    """What a hook sees of a transport word: the unsigned value as int64
+    for a 4-byte word (JAX's uint32), the int64 bits of an 8-byte one."""
+    if word.dtype == torch.int32:
+        return word.to(torch.int64) & _MASK32
+    return word
+
+
+def _run_bounds(sgk: torch.Tensor):
+    """(is_last, heads): the group-key runs' last and first slots."""
+    change = sgk[1:] != sgk[:-1]
+    one = torch.ones(min(sgk.shape[0], 1), dtype=torch.bool,
+                     device=sgk.device)
+    return torch.cat([change, one]), torch.cat([one, change])
+
+
+@functools.lru_cache(maxsize=16)
+def make_broadcast_join_aggregate_step(
+    n_devices: int,
+    n_left: int,
+    n_right_total: int,
+    group_key_fn: GroupKeyFn,
+    agg_val_fn: Optional[AggValFn] = None,
+):
+    """The fused step: fact side [D * n_left], dimension side
+    [n_right_total] replicated.  Returns fn(lk, lv, l_valid, rk, rv,
+    r_valid) -> run-end partial aggregates ``(gk, sums, counts, mins,
+    maxs, n_groups[1])``, ``gk`` a transport word.
+
+    Hooks see int64 tensors of the transport view: for a 4-byte
+    transport the unsigned 32-bit value (what JAX's uint32 holds, so
+    ``key % 1024`` and ``pay ^ dim`` compute the same numbers), for an
+    8-byte transport the int64 bit pattern of JAX's uint64.
+    ``group_key_fn(key_u)`` must depend ONLY on the join key (the fusion
+    precondition); its result is kept modulo the transport width.
+    ``agg_val_fn(key_u, fact_pay_u, dim_val_u)`` builds the aggregated
+    value per matched fact row, as int32, int64 or float32 (the dtypes
+    kernel 1 scans); ``None`` aggregates the dimension value read as the
+    signed transport width.  Hooks key the step cache by identity: pass
+    module-level functions, not fresh lambdas.
+    """
+    require_one_device(n_devices, "The broadcast join+aggregate")
+
+    def step(lk, lv, l_valid, rk, rv, r_valid):
+        _check_rows("broadcast join+aggregate", n_left, n_right_total, lk, rk)
+        ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
+        gk = group_key_fn(_hook_view(ku)).to(ku.dtype)
+        # invalid rows ride the all-ones (unsigned max) group, so they
+        # sort to the tail and never delimit or join a real group
+        gk = torch.where(role != _ROLE_INVALID, gk, -1)
+        perm = perm_by_group_key_role(gk, ku, role)
+        sgk, sk, srole, spay = gk[perm], ku[perm], role[perm], pay[perm]
+        dim_val, found = _probe_fill(sk, srole, spay)
+        if agg_val_fn is None:
+            v = dim_val
+        else:
+            v = agg_val_fn(_hook_view(sk), _hook_view(spay),
+                           _hook_view(dim_val))
+        id_min, id_max = _minmax_identities(v.dtype)
+        is_last, heads = _run_bounds(sgk)
+        csum_v = cumsum_1d(torch.where(found, v, 0))
+        csum_m = cumsum_1d(found.to(torch.int32))
+        flag, (fv, fm) = _ff_run_carry(is_last, (csum_v, csum_m))
+        prev_v, prev_m = _prev_end(flag, (fv, fm))
+        counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
+        # the invalid tail never counts: found is 0 there
+        real = counts > 0
+        sums = torch.where(real, csum_v - prev_v, 0).to(v.dtype)
+        mins = segmented_scan(torch.where(found, v, id_min), heads, "min")
+        maxs = segmented_scan(torch.where(found, v, id_max), heads, "max")
+        mins = torch.where(real, mins, 0).to(v.dtype)
+        maxs = torch.where(real, maxs, 0).to(v.dtype)
+        out_gk = torch.where(real, sgk, -1)
+        n_groups = real.sum(dtype=torch.int32).reshape(1)
+        return out_gk, sums, counts, mins, maxs, n_groups
+
+    return step
+
+
+class BroadcastJoinAggregator(ExchangeModel):
+    """Host-facing fused ``fact JOIN dim -> aggregateByKey`` for group
+    keys derived from the join key.  Returns ``{group_key: KeyStats}``
+    over matched fact rows (inner-join semantics)."""
+
+    def join_aggregate(
+        self,
+        fact_keys,
+        fact_vals,
+        dim_keys,
+        dim_vals,
+        group_key_fn: Optional[GroupKeyFn] = None,
+        agg_val_fn: Optional[AggValFn] = None,
+    ) -> Dict[int, KeyStats]:
+        """Hooks as in :func:`make_broadcast_join_aggregate_step`;
+        ``None`` groups by the join key and aggregates the dimension
+        value.  Group keys come back in the join key's signed domain."""
+        if group_key_fn is None:
+            group_key_fn = _identity_group_key
+        lk, lv = _as_columns(fact_keys, fact_vals)
+        rk, rv = _as_columns(dim_keys, dim_vals)
+        D = self.n_devices
+        lk, lv, l_valid, nl = _pad_to(lk, lv, D, self.quantize_shapes)
+        r_valid = np.ones(rk.shape[0], np.int32)
+        step = make_broadcast_join_aggregate_step(
+            D, nl // D, rk.shape[0], group_key_fn, agg_val_fn)
+        gk, sums, counts, mins, maxs, _n = step(*self._to_device(
+            *(torch.from_numpy(x) for x in (lk, lv, l_valid, rk, rv,
+                                            r_valid))))
+        # transport words read as signed, then as the join key's dtype
+        # (the _mask_output contract), so negative keys round-trip
+        gk_h = gk.cpu().numpy().astype(lk.dtype, copy=False)
+        sums_h, counts_h = sums.cpu().numpy(), counts.cpu().numpy()
+        mins_h, maxs_h = mins.cpu().numpy(), maxs.cpu().numpy()
+
+        def conv_for(a):
+            return float if np.issubdtype(a.dtype, np.floating) else int
+
+        c_sum, c_min, c_max = (conv_for(sums_h), conv_for(mins_h),
+                               conv_for(maxs_h))
+        out: Dict[int, KeyStats] = {}
+        (idx,) = (counts_h > 0).nonzero()
+        for i in idx:
+            key = int(gk_h[i])
+            st = KeyStats(c_sum(sums_h[i]), int(counts_h[i]),
+                          c_min(mins_h[i]), c_max(maxs_h[i]))
+            prev = out.get(key)
+            if prev is not None:  # partial rows merge (two-phase combine)
+                st = KeyStats(prev.sum + st.sum, prev.count + st.count,
+                              min(prev.min, st.min), max(prev.max, st.max))
+            out[key] = st
+        return out
+
+
+def _identity_group_key(key_u):
+    return key_u

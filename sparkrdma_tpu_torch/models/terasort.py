@@ -23,15 +23,7 @@ import torch
 
 from sparkrdma_tpu_torch.models._base import ExchangeModel, check_dtypes
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid
-from sparkrdma_tpu_torch.parallel.device import MULTI_GPU_ITEM
-
-
-def _require_one_device(n_devices: int) -> None:
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"TeraSort over {n_devices} devices is not ported yet "
-            f"({MULTI_GPU_ITEM})"
-        )
+from sparkrdma_tpu_torch.parallel.device import require_one_device
 
 
 def _pad_rows(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
@@ -50,7 +42,7 @@ def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int):
     """One device's sort.  ``valid`` is int32 0/1 or None (everything
     valid, no validity operand).  Returns (keys' [capacity],
     vals' [capacity], n_valid int32[1], max_fill int32[1])."""
-    _require_one_device(n_devices)
+    require_one_device(n_devices, "TeraSort")
     n_local = keys.shape[0]
     sentinel = torch.iinfo(keys.dtype).max
     if valid is None:
@@ -76,7 +68,7 @@ def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int):
     carries a row index, and the payload rows [n, W] follow by one row
     gather.  Returns (keys' [capacity], payload' [capacity, W],
     n_valid int32[1], max_fill int32[1])."""
-    _require_one_device(n_devices)
+    require_one_device(n_devices, "TeraSort")
     n_local = keys.shape[0]
     sentinel = torch.iinfo(keys.dtype).max
     k, perm = torch.sort(keys, stable=True)

@@ -1,0 +1,102 @@
+"""Grouped top-k on one GPU, the rank/LIMIT-per-group SQL shape: the
+port of ``sparkrdma_tpu/models/topk.py``.
+
+TPC-DS q67-style plans rank rows within each group and keep the top k
+(``row_number() over (partition by key order by value desc) <= k``):
+
+  hash exchange (the identity on one device) -> one sort keyed (key,
+  validity, value descending via bitwise complement) -> per-run rank
+  from a run-end forward fill (kernel 1) -> rank < k mask.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List
+
+import torch
+
+from sparkrdma_tpu_torch.models._base import ExchangeModel
+from sparkrdma_tpu_torch.ops.exchange import hash_exchange
+from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid_value
+from sparkrdma_tpu_torch.ops.segment import _ff_run_carry
+from sparkrdma_tpu_torch.parallel.device import require_one_device
+
+
+def _rank_in_runs(ks: torch.Tensor, valid_s: torch.Tensor) -> torch.Tensor:
+    """Rank of each slot within its (key, validity) run in a sorted
+    layout: its index minus the run's start, the run-end POSITION of the
+    previous run forward-filled through kernel 1 and shifted one slot."""
+    n = ks.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=ks.device)
+    bound = (ks[1:] != ks[:-1]) | (valid_s[1:] != valid_s[:-1])
+    head = min(n, 1)
+    is_last = torch.cat([bound, bound.new_ones(head)])
+    flag, (fpos,) = _ff_run_carry(is_last, (iota + 1,))
+    fpos = torch.where(flag, fpos, 0)
+    run_start = torch.cat([fpos.new_zeros(head), fpos[:-1]])
+    return iota - run_start
+
+
+def make_topk_step(n_devices: int, n_local: int, capacity: int, k: int):
+    """Grouped top-k over [D * n_local] (keys, values, int32 0/1
+    validity): returns fn(...) -> (keys', vals', keep, n_keep[1],
+    max_fill[1]) with keep = 1 on the top-k rows of each key (value
+    descending; ties in any order)."""
+    require_one_device(n_devices, "Grouped top-k")
+
+    def step(keys, vals, valid):
+        flat_k, flat_v, flat_m, max_fill = hash_exchange(
+            keys, vals, valid, n_devices, capacity)
+        flat_k = torch.where(flat_m > 0, flat_k,
+                             torch.iinfo(flat_k.dtype).max)
+        # the complement reverses the order of signed ints, and undoes
+        # itself after the sort
+        inv = 1 - flat_m.to(torch.int32)
+        perm = perm_by_key_invalid_value(flat_k, inv, ~flat_v)
+        ks, inv_s, vs = flat_k[perm], inv[perm], flat_v[perm]
+        rank = _rank_in_runs(ks, inv_s)
+        keep = ((rank < k) & (inv_s == 0)).to(torch.int32)
+        n_keep = keep.sum(dtype=torch.int32).reshape(1)
+        return ks, vs, keep, n_keep, max_fill.reshape(1)
+
+    return step
+
+
+def _make_step_with_k(n_devices, n_local, capacity, k, with_validity=True):
+    """The step maker signature of ``ExchangeModel._run_padded_keyed``;
+    the validity-free path reuses the general step with every slot
+    valid (the rank needs the validity run delimiter anyway)."""
+    step = make_topk_step(n_devices, n_local, capacity, k)
+    if with_validity:
+        return step
+
+    def run(keys, vals):
+        return step(keys, vals, torch.ones(keys.shape[0], dtype=torch.int32,
+                                           device=keys.device))
+
+    return run
+
+
+class GroupedTopK(ExchangeModel):
+    """Host-facing grouped top-k: ``{key: [k largest values desc]}``."""
+
+    def __init__(self, device=None, capacity_factor: float = 2.0, **kw):
+        super().__init__(device, capacity_factor, **kw)
+
+    def top_k(self, keys, vals, k: int) -> Dict[int, List[int]]:
+        if k <= 0:
+            raise ValueError(f"k must be positive: {k}")
+        step_maker = functools.partial(_make_step_with_k, k=k)
+        rows, _nu = self._run_padded_keyed(keys, vals, step_maker)
+        if rows is None:
+            return {}
+        ks_h, vs_h, keep_h = rows
+        out: Dict[int, List[int]] = {}
+        for d in range(self.n_devices):
+            mask = keep_h[d] > 0
+            for kk, vv in zip(ks_h[d][mask], vs_h[d][mask]):
+                out.setdefault(int(kk), []).append(int(vv))
+        # rows arrive key-grouped and value-descending, and a key lives
+        # on one device, so each list is already the final top-k
+        return out

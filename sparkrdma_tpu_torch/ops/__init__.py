@@ -3,6 +3,14 @@ from sparkrdma_tpu_torch.ops.attention import (
     block_attention,
     block_attention_plain,
 )
+from sparkrdma_tpu_torch.ops.partition import (
+    bucketize_segments,
+    hash_partition_ids,
+    make_range_splitters,
+    partition_to_buckets,
+    partition_to_buckets_dropping,
+    range_partition_ids,
+)
 from sparkrdma_tpu_torch.ops.scan_kernels import (
     cumsum_1d,
     scan_flagged,
@@ -30,7 +38,13 @@ __all__ = [
     "block_attention_plain",
     "block_sort_plain",
     "bucket_cap",
+    "bucketize_segments",
     "cumsum_1d",
+    "hash_partition_ids",
+    "make_range_splitters",
+    "partition_to_buckets",
+    "partition_to_buckets_dropping",
+    "range_partition_ids",
     "reduce_by_key_local",
     "scan_flagged",
     "scan_flagged_plain",

@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from sparkrdma_tpu_torch.parallel.device import MULTI_GPU_ITEM
+from sparkrdma_tpu_torch.parallel.device import require_one_device
 
 
 def hash_exchange(
@@ -24,10 +24,6 @@ def hash_exchange(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (keys', vals', valid', max_fill) of everything this
     device owns after the exchange."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"hash_exchange over {n_devices} devices is not ported yet "
-            f"({MULTI_GPU_ITEM})"
-        )
+    require_one_device(n_devices, "hash_exchange")
     return keys, vals, valid, torch.zeros((), dtype=torch.int32,
                                           device=keys.device)

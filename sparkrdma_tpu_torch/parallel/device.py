@@ -16,10 +16,20 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 MULTI_GPU_ITEM = (
-    "ROADMAP.md, 'Next, in order', item 2: Multi-GPU exchange "
-    "(partition.py, hash_exchange and the D > 1 TeraSort over "
+    "ROADMAP.md, 'Next, in order', item 1: Multi-GPU exchange "
+    "(hash_exchange, then the D > 1 TeraSort, joins and top-k over "
     "torch.distributed)"
 )
+
+
+def require_one_device(n_devices: int, what: str) -> None:
+    """Raise NotImplementedError naming the multi-GPU item unless
+    ``n_devices`` is 1."""
+    if n_devices != 1:
+        raise NotImplementedError(
+            f"{what} over {n_devices} devices is not ported yet "
+            f"({MULTI_GPU_ITEM})"
+        )
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

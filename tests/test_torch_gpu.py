@@ -17,6 +17,9 @@ import pytest
 import torch
 
 from sparkrdma_tpu_torch import _build
+from sparkrdma_tpu_torch.models import join as tjoin
+from sparkrdma_tpu_torch.models import join_aggregate as tja
+from sparkrdma_tpu_torch.models import topk as ttopk
 from sparkrdma_tpu_torch.ops import attention as tattn
 from sparkrdma_tpu_torch.ops import scan_kernels as tscan
 from sparkrdma_tpu_torch.ops import sort_kernel as tsort
@@ -164,6 +167,93 @@ def test_scan_kernel_many_tiles_on_card(cuda_device, kind):
         _f, (want,) = tscan.scan_flagged_plain(
             "add", torch.zeros_like(flag), cols[:1])
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int64])
+def test_scan_kernel_two_column_fill_on_card(cuda_device, dtype):
+    """The join probe's fill: two uint32 (or int64) columns."""
+    rng = np.random.default_rng(11)
+    n = 9 * 4096 + 5
+    flag = torch.from_numpy(rng.random(n) < 0.05).to(cuda_device)
+    cols = [torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                             .astype(np.int64)).to(dtype).to(cuda_device)
+            for _ in range(2)]
+    gf, gx = tscan.scan_flagged("fill", flag, cols)
+    wf, wx = tscan.scan_flagged_plain("fill", flag, cols)
+    assert torch.equal(gf, wf)
+    for g, w in zip(gx, wx):
+        # CUDA indexes no uint32 tensor: compare as int64
+        assert g.dtype == dtype and torch.equal(g.long()[wf], w.long()[wf])
+
+
+SQL_N = 1 << 17
+
+
+def _sql_cols(seed, n_dim, key_space):
+    """Fact columns of SQL_N rows against a unique-keyed dimension,
+    with about 10% of each side invalid."""
+    rng = np.random.default_rng(seed)
+    dk = rng.choice(key_space, n_dim, replace=False).astype(np.int32)
+    cols = (rng.integers(0, key_space, SQL_N, dtype=np.int32),
+            rng.integers(I32.min, I32.max, SQL_N, dtype=np.int32),
+            (rng.random(SQL_N) < 0.9).astype(np.int32),
+            dk, rng.integers(I32.min, I32.max, n_dim, dtype=np.int32),
+            (rng.random(n_dim) < 0.9).astype(np.int32))
+    return [torch.from_numpy(c) for c in cols]
+
+
+def _same_on_card_and_cpu(step, cols, device, min_scans):
+    """``step`` on the card and on the CPU: bit-exact outputs, and the
+    card's run launched the flagged scan at least ``min_scans`` times."""
+    want = step(*cols)
+    _build.reset_launch_counts()
+    got = step(*(c.to(device) for c in cols))
+    assert _build.launch_counts()["flagged_scan"] >= min_scans
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hash", "broadcast"])
+def test_join_steps_match_cpu_on_card(cuda_device, kind):
+    cols = _sql_cols(1, 1 << 11, 1 << 12)
+    if kind == "hash":
+        step = tjoin.make_hash_join_step(1, SQL_N, 1 << 11, 2 * SQL_N)
+    else:
+        step = tjoin.make_broadcast_join_step(1, SQL_N, 1 << 11)
+    _same_on_card_and_cpu(step, cols, cuda_device, 1)
+
+
+def _gk1024(ku):
+    return ku % 1024
+
+
+def _xor(ku, fact_pay_u, dim_val_u):
+    return (fact_pay_u ^ dim_val_u).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hooks", ["defaults", "bench_tpcds"])
+def test_join_aggregate_step_matches_cpu_on_card(cuda_device, hooks):
+    gk, val = (tja._identity_group_key, None) if hooks == "defaults" \
+        else (_gk1024, _xor)
+    cols = _sql_cols(2, 1 << 11, 1 << 12)
+    step = tja.make_broadcast_join_aggregate_step(1, SQL_N, 1 << 11, gk, val)
+    # a fill, two prefix sums, a run-end fill, a min and a max scan
+    _same_on_card_and_cpu(step, cols, cuda_device, 6)
+
+
+@pytest.mark.gpu
+def test_topk_step_matches_cpu_on_card(cuda_device):
+    rng = np.random.default_rng(3)
+    cols = [torch.from_numpy(c) for c in (
+        rng.integers(0, 5000, SQL_N, dtype=np.int32),
+        rng.integers(-100, 100, SQL_N, dtype=np.int32),
+        (rng.random(SQL_N) < 0.9).astype(np.int32))]
+    step = ttopk.make_topk_step(1, SQL_N, SQL_N, 100)
+    _same_on_card_and_cpu(step, cols, cuda_device, 1)
 
 
 @pytest.mark.gpu

@@ -291,6 +291,12 @@ def test_import_loads_neither_jax_nor_reference():
         "sparkrdma_tpu_torch.models, sparkrdma_tpu_torch.interop, "
         "sparkrdma_tpu_torch.parallel.ring, "
         "sparkrdma_tpu_torch.ops.attention, "
+        "sparkrdma_tpu_torch.ops.partition, "
+        "sparkrdma_tpu_torch.memory.direct_io, "
+        "sparkrdma_tpu_torch.models.join, "
+        "sparkrdma_tpu_torch.models.join_aggregate, "
+        "sparkrdma_tpu_torch.models.topk, "
+        "sparkrdma_tpu_torch.models.external_sort, "
         "sparkrdma_tpu_torch.models.ring_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sparkrdma_tpu' "
