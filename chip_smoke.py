@@ -10,11 +10,15 @@ points (TeraSort 8 B and 100 B records, the two-phase block sort
 engine, WordCount and aggregateByKey over Zipf keys, the SQL-exchange
 models: hash and broadcast joins, the TPC-DS q64/q72-shaped pipeline
 with and without the fused join+aggregate, grouped top-k, hash
-partitioning and the external sort, and causal sequence-parallel
-attention through ``ring_attention`` and ``ulysses_attention`` on a
-group of one, 8 heads x 8192 and x 32768, d_head 128, bfloat16),
-checks every result against an independent torch oracle, and shows
-through the launch counters that the main paths ran the kernels.
+partitioning and the external sort, the rank-local stages of one rank
+of a D = 8 exchange (TeraSort's map side and merge, the keyed map side
+and reduction), and causal sequence-parallel attention through
+``ring_attention`` and ``ulysses_attention`` on a group of one, 8 heads
+x 8192 and x 32768, d_head 128, bfloat16), checks every result against
+an independent torch oracle, and shows through the launch counters
+that the main paths ran the kernels.  With two or more cards it also
+runs TeraSort, WordCount and the hash join over NCCL on up to four of
+them; with one it prints that this did not run.
 float32 matrix products run without TF32 throughout, so the plain
 versions and oracles are full float32.
 
@@ -61,6 +65,11 @@ TOPK_K = 100                # TPC-DS q67: rank <= 100 per group
 PARTS = 8                   # the D = 8 join's map side
 EXT_CHUNKS = 16             # external sort: 16 chunks of 2^22 records
 EXT_BUCKETS = 64
+STAGE_RANKS = 8             # exchange_stages: one rank of a D = 8 world
+STAGE_WIDE_N = WIDE_N // STAGE_RANKS
+MULTI_SORT_N = 1 << 24      # multi_gpu, per rank
+MULTI_FACT_N = 1 << 22
+MULTI_DIM_N = 1 << 16
 U32 = (1 << 32) - 1
 # float32 "add" sums in another order in the kernel (sequential per
 # thread, then a tree) than in the log-step plain version; segments
@@ -1160,6 +1169,266 @@ def phase_partition(torch, part, gen, dev):
           max_bucket=int(counts.max()), correct=True)
 
 
+def _stage_capacity(n_local, factor):
+    """``ExchangeModel._capacity`` at D = STAGE_RANKS."""
+    return max(8, -(-math.ceil(n_local / STAGE_RANKS * factor) // 8) * 8)
+
+
+def _terasort_stages(torch, ts, part, keys, vals):
+    """One rank's TeraSort stages: the map side (sort, sample, splitters
+    from this rank's own sample, window fill) and the merge of the
+    [D, cap] block a rank receives when every source sends it this
+    rank's windows.  Returns (map_side, merge, capacity)."""
+    n = keys.shape[0]
+    cap = _stage_capacity(n, 1.3)  # TeraSorter's factor
+    sample = min(1024, n)
+
+    def map_side():
+        k, v, n_real, smp = ts.sort_and_sample(keys, vals, None, sample)
+        splitters = part.make_range_splitters(smp, STAGE_RANKS)
+        return ts.fill_windows(k, v, n_real, splitters, cap)
+
+    bk, bv, valid_counts, counts = map_side()
+    require(int(counts.max()) <= cap, "a window overflowed its capacity")
+    return map_side, lambda: ts.merge_received(bk, bv, valid_counts), cap
+
+
+def phase_exchange_stages(torch, ts, part, wc_mod, seg, _build, gen, dev):
+    """The rank-local stages of one rank of a D = 8 world, at that
+    rank's full shape, on one card; collectives excluded.  A rank that
+    receives its own [8, cap] block gets input of the shape and
+    structure ``all_to_all`` delivers, so the merge and the keyed
+    reduction run the port's functions on a valid received block.
+
+    - 8 B TeraSort, n_local = 2^24 (the D = 1 cell's size);
+    - 100 B TeraSort, n_local = 2^22 (HiBench "large", 2^25 records,
+      over 8 ranks);
+    - keyed: 2^26 Zipf(1.1) keys hashed into 8 buckets, then
+      ``_premask`` and ``reduce_by_key_local`` (kernel 1).
+
+    Returns kernel 1's launches in the keyed run."""
+    i32 = dict(device=dev, dtype=torch.int32)
+    keys = torch.randint(0, 1 << 31, (SORT_N,), generator=gen, **i32)
+    vals = torch.randint(0, 1 << 31, (SORT_N,), generator=gen, **i32)
+    map_side, merge, cap = _terasort_stages(torch, ts, part, keys, vals)
+    sk, sv, n_valid = merge()
+    torch.cuda.synchronize()
+    require(int(n_valid[0]) == SORT_N, "8 B stages lost records")
+    _check_pairs_sorted(torch, keys, vals, sk[:SORT_N], sv[:SORT_N],
+                        "8 B stages")
+    require(bool((sk[SORT_N:] == torch.iinfo(torch.int32).max).all()),
+            "8 B stages: padding is not last")
+    del sk, sv
+    res = dict(map_ms=cuda_ms(map_side), merge_ms=cuda_ms(merge),
+               total_ms=cuda_ms(lambda: (map_side(), merge())))
+    profile(torch, "exchange_stages_8B", lambda: (map_side(), merge()))
+    phase("exchange_stages", what="terasort_8B", ranks=STAGE_RANKS,
+          n_local=SORT_N, capacity=cap, received=STAGE_RANKS * cap, **res,
+          correct=True)
+    del keys, vals, map_side, merge
+    torch.cuda.empty_cache()
+
+    n = STAGE_WIDE_N
+    keys = torch.randint(0, 1 << 31, (n,), generator=gen, **i32)
+    payload = torch.randint(-(1 << 31), (1 << 31) - 1, (n, WIDE_WORDS),
+                            generator=gen, **i32)
+    payload[:, 0] = torch.arange(n, **i32)
+    map_side, merge, cap = _terasort_stages(torch, ts, part, keys, payload)
+    sk, sp, n_valid = merge()
+    torch.cuda.synchronize()
+    require(int(n_valid[0]) == n, "100 B stages lost records")
+    sk, sp = sk[:n], sp[:n]
+    require(bool((sk[1:] >= sk[:-1]).all()), "100 B stages: unsorted")
+    rows = sp[:, 0].long()
+    require(bool((torch.bincount(rows, minlength=n) == 1).all()),
+            "100 B stages: rows are not a permutation of the input")
+    require(torch.equal(keys[rows], sk) and torch.equal(payload[rows], sp),
+            "100 B stages: rows changed or left their keys")
+    del sk, sp, rows
+    res = dict(map_ms=cuda_ms(map_side, iters=3),
+               merge_ms=cuda_ms(merge, iters=3),
+               total_ms=cuda_ms(lambda: (map_side(), merge()), iters=3))
+    profile(torch, "exchange_stages_100B", lambda: (map_side(), merge()))
+    rec = 4 + 4 * WIDE_WORDS
+    phase("exchange_stages", what="terasort_100B", ranks=STAGE_RANKS,
+          n_local=n, record_bytes=rec, capacity=cap,
+          received=STAGE_RANKS * cap, **res, correct=True)
+    del keys, payload, map_side, merge
+    torch.cuda.empty_cache()
+
+    n = KEYED_N
+    keys = zipf_keys(torch, n, gen, dev)
+    vals = torch.randint(-1000, 1000, (n,), generator=gen, **i32)
+    valid = torch.ones(n, **i32)
+    factor = 2.0  # WordCounter's; doubled on overflow, as its driver does
+
+    def map_side():
+        ids = part.hash_partition_ids(keys, STAGE_RANKS)
+        return part.partition_to_buckets_dropping(
+            ids, valid > 0, (keys, vals, valid), STAGE_RANKS, cap,
+            fill_values=(torch.iinfo(torch.int32).max, 0, 0))
+
+    while True:
+        cap = _stage_capacity(n, factor)
+        (bk, bv, bm), counts = map_side()
+        if int(counts.max()) <= cap:
+            break
+        require(factor < 64, "the keyed buckets overflow at any capacity")
+        factor *= 2
+
+    def reduce_side():
+        k, v, m, _fill = wc_mod._premask(bk.reshape(-1), bv.reshape(-1),
+                                         bm.reshape(-1), 1, cap)
+        return seg.reduce_by_key_local(k, v, m)
+
+    outs, launches = _scan_launches(torch, _build, reduce_side)
+    require(launches > 0, "the keyed stages did not launch the flagged scan")
+    uniq, sums, cnts, n_unique = outs
+    oracle = keyed_oracle(torch, keys, vals)
+    _check_keyed(torch, dict(uniq=uniq, sums=sums, counts=cnts), oracle,
+                 "keyed stages", False)
+    require(int(n_unique) == oracle["keys"].numel(), "keyed stages n_unique")
+    del outs, uniq, sums, cnts
+    res = dict(map_ms=cuda_ms(map_side, iters=3),
+               reduce_ms=cuda_ms(reduce_side, iters=3))
+    profile(torch, "exchange_stages_keyed", reduce_side)
+    phase("exchange_stages", what="keyed", ranks=STAGE_RANKS, n_local=n,
+          vocab=VOCAB, zipf_s=ZIPF_S, capacity_factor=factor, capacity=cap,
+          received=STAGE_RANKS * cap, max_bucket=int(counts.max()),
+          distinct=oracle["keys"].numel(), **res,
+          total_ms=res["map_ms"] + res["reduce_ms"], launches=launches,
+          correct=True)
+    return launches
+
+
+def _lengths(torch, group, n):
+    """Every rank's ``n``, in rank order."""
+    t = torch.tensor([n], dtype=torch.int64, device=group.device)
+    return group.all_gather(t).reshape(-1).tolist()
+
+
+def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim):
+    """TeraSort (``n_sort`` records per rank), WordCount (``n_sort`` Zipf
+    keys per rank) and the hash join (``n_fact`` fact and ``n_dim``
+    dimension rows per rank) through their host drivers on this rank's
+    shard of one seeded input, which every rank draws whole and checks
+    its share of against a one-card oracle.  Returns the host seconds
+    of each driver call."""
+    import numpy as np
+
+    from sparkrdma_tpu_torch import HashJoiner, TeraSorter, WordCounter
+
+    import torch.distributed as dist
+
+    rank, world, dev = group.rank, group.size, group.device
+    times = {}
+
+    def timed(name, fn):
+        dist.barrier(group=group.group)
+        t0 = time.monotonic()
+        res = fn()
+        times[name] = time.monotonic() - t0
+        return res
+
+    rng = np.random.default_rng(7)
+    keys = rng.integers(0, 1 << 31, n_sort * world, dtype=np.int32)
+    vals = rng.integers(0, 1 << 31, n_sort * world, dtype=np.int32)
+    mine = slice(rank * n_sort, (rank + 1) * n_sort)
+    sk, sv = timed("terasort_s", lambda: TeraSorter(group=group).sort(
+        keys[mine], vals[mine]))
+    # range partitioning keeps every key on one rank, so rank r's run is
+    # the slice of the whole sort after the earlier ranks' runs
+    runs = _lengths(torch, group, len(sk))
+    require(sum(runs) == n_sort * world, "multi-GPU TeraSort lost records")
+    lo = sum(runs[:rank])
+    whole = torch.sort(_packed_rows(torch, torch.from_numpy(keys).to(dev),
+                                    torch.from_numpy(vals).to(dev))).values
+    got = _packed_rows(torch, torch.from_numpy(sk).to(dev),
+                       torch.from_numpy(sv).to(dev))
+    require(bool((torch.from_numpy(sk[1:]) >= torch.from_numpy(sk[:-1]))
+                 .all()), f"rank {rank}: TeraSort run unsorted")
+    require(torch.equal(got, whole[lo:lo + len(sk)]),
+            f"rank {rank}: TeraSort run is not its slice of the sort")
+    del whole, got
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    zk = zipf_keys(torch, n_sort * world, gen, dev)
+    counts = timed("wordcount_s", lambda: WordCounter(group=group).count(
+        zk[rank * n_sort:(rank + 1) * n_sort].cpu().numpy()))
+    uk, uc = torch.unique(zk, return_counts=True)
+    owned = torch.tensor(sorted(counts), dtype=torch.int32, device=dev)
+    at = torch.searchsorted(uk, owned)
+    require(torch.equal(uk[at], owned) and torch.equal(
+        uc[at], torch.tensor([counts[k] for k in sorted(counts)],
+                             device=dev)),
+            f"rank {rank}: WordCount totals differ")
+    require(sum(_lengths(torch, group, len(counts))) == uk.numel(),
+            "multi-GPU WordCount: keys missing or owned twice")
+
+    fk = rng.integers(0, n_dim * world * 15 // 14, n_fact * world,
+                      dtype=np.int32)
+    fv = rng.integers(0, 1 << 31, n_fact * world, dtype=np.int32)
+    dk = np.arange(n_dim * world, dtype=np.int32)
+    dv = rng.integers(0, 1 << 31, n_dim * world, dtype=np.int32)
+    fm = slice(rank * n_fact, (rank + 1) * n_fact)
+    dm = slice(rank * n_dim, (rank + 1) * n_dim)
+    jk, jf, jd = timed("hash_join_s", lambda: HashJoiner(group=group).join(
+        fk[fm], fv[fm], dk[dm], dv[dm]))
+    require(np.array_equal(jd, dv[jk]), f"rank {rank}: join values differ")
+    require(sum(_lengths(torch, group, len(jk)))
+            == int((fk < n_dim * world).sum()), "multi-GPU join row count")
+    return times
+
+
+def _multi_gpu_rank(rank, world, store, out_dir):
+    """One NCCL rank of :func:`phase_multi_gpu` (``torch.multiprocessing``
+    target): its times go to ``out_dir/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch import ExchangeGroup
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        times = multi_gpu_cases(torch, ExchangeGroup(dist.group.WORLD),
+                                MULTI_SORT_N, MULTI_FACT_N, MULTI_DIM_N)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(times, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multi_gpu(torch):
+    """TeraSort, WordCount and the hash join over NCCL on min(cards, 4)
+    cards, one process per card, each rank against a one-card oracle;
+    a failure fails the run.  With one card nothing runs: NCCL refuses
+    two ranks on one GPU."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        out({"phase": "multi_gpu", "ran": False, "cards": cards})
+        return
+    world = min(cards, 4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        mp.spawn(_multi_gpu_rank, args=(world, os.path.join(tmp, "store"),
+                                        tmp), nprocs=world, join=True)
+        times = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                times.append(json.load(f))
+    phase("multi_gpu", ran=True, cards=cards, ranks=world,
+          sort_records_per_rank=MULTI_SORT_N,
+          fact_rows_per_rank=MULTI_FACT_N, dim_rows_per_rank=MULTI_DIM_N,
+          seconds_max_over_ranks={k: max(t[k] for t in times)
+                                  for k in times[0]}, correct=True)
+
+
 def phase_external_sort(torch, ext_mod, seed, dev):
     """``ExternalTeraSorter`` on the card over 2^26 int32 (key, value)
     records in 16 chunks of 2^22 and 64 buckets, spilled under a
@@ -1234,9 +1503,11 @@ def main(argv=None) -> int:
         from sparkrdma_tpu_torch.models import join_aggregate as jamod
         from sparkrdma_tpu_torch.models import terasort as ts
         from sparkrdma_tpu_torch.models import topk as tkmod
+        from sparkrdma_tpu_torch.models import wordcount as wc_mod
         from sparkrdma_tpu_torch.ops import attention as attn
         from sparkrdma_tpu_torch.ops import partition as part
         from sparkrdma_tpu_torch.ops import scan_kernels as scan
+        from sparkrdma_tpu_torch.ops import segment as seg
         from sparkrdma_tpu_torch.ops import sort_kernel as sk_mod
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -1276,6 +1547,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_partition(torch, part, gen, dev)
         torch.cuda.empty_cache()
+        scan_k["launches"] += phase_exchange_stages(
+            torch, ts, part, wc_mod, seg, _build, gen, dev)
+        torch.cuda.empty_cache()
+        phase_multi_gpu(torch)
         check_err = phase_attention_check(torch, attn, gen, dev)
         attn_k = phase_attention_time(torch, attn, gen, dev)
         attn_k["max_abs_err"] = max(attn_k["max_abs_err"], check_err)

@@ -6,14 +6,16 @@ run on CUDA unless the caller passes ``device="cpu"``, and raise when
 CUDA is absent.  The hand-written kernels of ``csrc/`` build with
 ``nvcc`` at first use (``_build.py``).
 
-The shuffle models run on one GPU: TeraSort (sortByKey, 8 B and wide
-records), the two-phase block sort engine, WordCount (reduceByKey),
-keyed aggregation (aggregateByKey), and the SQL-exchange models: hash
-and broadcast joins (inner, left outer, semi, anti), the fused
-broadcast join + aggregate, grouped top-k and the external
-(larger-than-memory) sort.  Sequence-parallel attention (ring
-and Ulysses) runs on a ``torch.distributed`` exchange group of any
-size, over the blockwise flash-attention kernel.
+The shuffle models: TeraSort (sortByKey, 8 B and wide records), the
+two-phase block sort engine, WordCount (reduceByKey), keyed aggregation
+(aggregateByKey), and the SQL-exchange models: hash and broadcast joins
+(inner, left outer, semi, anti), the fused broadcast join + aggregate,
+grouped top-k and the external (larger-than-memory) sort.  Each runs
+on one GPU, or (all but the external sort) over a ``torch.distributed``
+exchange group of D GPUs, one process per GPU (``group=``): each rank
+passes its own shard and gets what it owns after the exchange.
+Sequence-parallel attention (ring and Ulysses) runs on an exchange
+group of any size, over the blockwise flash-attention kernel.
 """
 
 from sparkrdma_tpu_torch.models import (

@@ -15,7 +15,11 @@ from sparkrdma_tpu_torch.models.ring_attention import (
     ring_attention,
     ulysses_attention,
 )
-from sparkrdma_tpu_torch.models.terasort import TeraSorter
+from sparkrdma_tpu_torch.models.terasort import (
+    TeraSorter,
+    make_sort_step,
+    make_wide_sort_step,
+)
 from sparkrdma_tpu_torch.models.topk import GroupedTopK, make_topk_step
 from sparkrdma_tpu_torch.models.wordcount import WordCounter
 
@@ -33,7 +37,9 @@ __all__ = [
     "make_broadcast_join_aggregate_step",
     "make_broadcast_join_step",
     "make_hash_join_step",
+    "make_sort_step",
     "make_topk_step",
+    "make_wide_sort_step",
     "ring_attention",
     "ulysses_attention",
 ]

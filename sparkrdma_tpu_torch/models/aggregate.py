@@ -1,9 +1,10 @@
-"""Keyed aggregation (aggregateByKey) on one GPU: the port of
+"""Keyed aggregation (aggregateByKey): the port of
 ``sparkrdma_tpu/models/aggregate.py``.
 
-Sum, count, min, max (and mean, host-side) per key: the identity
-exchange of one device followed by ``ops/segment.py``'s
-``aggregate_by_key_local``.
+Sum, count, min, max (and mean, host-side) per key: the hash exchange
+(the identity on one device) followed by ``ops/segment.py``'s
+``aggregate_by_key_local``.  At D > 1 each rank returns the keys it
+owns.
 """
 
 from __future__ import annotations
@@ -12,9 +13,11 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from sparkrdma_tpu_torch.models._base import ExchangeModel, check_dtypes
+from sparkrdma_tpu_torch.models._base import ExchangeModel
 from sparkrdma_tpu_torch.models.wordcount import _premask
 from sparkrdma_tpu_torch.ops.segment import aggregate_by_key_local
+
+_VALUE_ROWS = (1, 3, 4)  # sums, mins, maxs
 
 
 class KeyStats(NamedTuple):
@@ -31,9 +34,10 @@ class KeyStats(NamedTuple):
 
 
 def make_aggregate_step(n_devices: int, n_local: int, capacity: int,
-                        with_validity: bool = True):
-    """The aggregateByKey step over [D * n_local] columns.  Returns
-    fn(...) -> (uniq, sums, counts, mins, maxs, n_unique[1],
+                        with_validity: bool = True, group=None,
+                        unsigned_keys: bool = False):
+    """The aggregateByKey step over this rank's [n_local] columns.
+    Returns fn(...) -> (uniq, sums, counts, mins, maxs, n_unique[1],
     max_fill[1]).  ``with_validity=False`` is the D == 1 unpadded fast
     path."""
     if not with_validity:
@@ -48,7 +52,8 @@ def make_aggregate_step(n_devices: int, n_local: int, capacity: int,
         return body_nv
 
     def body(k, v, valid):
-        k, v, m, max_fill = _premask(k, v, valid, n_devices, capacity)
+        k, v, m, max_fill = _premask(k, v, valid, n_devices, capacity,
+                                     group, unsigned_keys)
         *rows, n_unique = aggregate_by_key_local(k, v, m)
         return (*rows, n_unique.reshape(1), max_fill.reshape(1))
 
@@ -64,37 +69,21 @@ class KeyedAggregator(ExchangeModel):
     def aggregate_device(self, keys: torch.Tensor, vals: torch.Tensor,
                          valid: Optional[torch.Tensor] = None,
                          capacity: Optional[int] = None):
-        """One step on device tensors (the counterpart of
+        """One step on this rank's device tensors (the counterpart of
         ``WordCounter.count_device``).  Returns ((uniq, sums, counts,
         mins, maxs, n_unique[1], max_fill[1]), capacity)."""
-        n = keys.shape[0]
-        if n % self.n_devices:
-            raise ValueError(f"length {n} not divisible by D={self.n_devices}")
-        check_dtypes(keys=keys, vals=vals)
-        n_local = n // self.n_devices
-        cap = capacity or self._capacity(n_local)
-        keys, vals, valid = self._to_device(keys, vals, valid)
-        if valid is None and self.n_devices == 1:
-            step = make_aggregate_step(1, n_local, cap, with_validity=False)
-            return step(keys, vals), cap
-        if valid is None:
-            valid = torch.ones(n, dtype=torch.int32, device=self.device)
-        step = make_aggregate_step(self.n_devices, n_local, cap)
-        return step(keys, vals, valid), cap
+        return self._run_device_keyed(make_aggregate_step, keys, vals,
+                                      valid, capacity, _VALUE_ROWS)
 
     def aggregate(self, keys, vals) -> Dict[int, KeyStats]:
-        """Sums accumulate in the value dtype and wrap on overflow (JVM
-        Int/Long parity)."""
-        rows, _nu = self._run_padded_keyed(keys, vals, make_aggregate_step)
+        """{key: KeyStats} of the keys this rank owns.  Sums accumulate
+        in the value dtype and wrap on overflow (JVM Int/Long parity);
+        float values come back as floats."""
+        rows, _nu = self._run_padded_keyed(keys, vals, make_aggregate_step,
+                                           "sum", _VALUE_ROWS)
         if rows is None:
             return {}
-        uniq_h, sums_h, counts_h, mins_h, maxs_h = rows
-        out: Dict[int, KeyStats] = {}
-        for d in range(self.n_devices):
-            (idx,) = (counts_h[d] > 0).nonzero()
-            for i in idx:
-                out[int(uniq_h[d, i])] = KeyStats(
-                    int(sums_h[d, i]), int(counts_h[d, i]),
-                    int(mins_h[d, i]), int(maxs_h[d, i]),
-                )
-        return out
+        mask = rows[2] > 0
+        uniq, sums, counts, mins, maxs = (r[mask].tolist() for r in rows)
+        return {k: KeyStats(*st) for k, *st in
+                zip(uniq, sums, counts, mins, maxs)}

@@ -16,6 +16,10 @@ or ONE bucket, never the whole dataset:
    recursively with splitters sampled from its own file.
 
 Peak device memory: O(max(chunk, bucket)); disk holds the rest.
+
+It runs on one device.  Over a group of D > 1 ranks its chunk sorts
+would be rank-local runs, and its bucket boundaries and spill files
+need a design of their own (:data:`EXTERNAL_SORT_ITEM`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ import numpy as np
 
 from sparkrdma_tpu_torch.memory.direct_io import DirectAppender, direct_supported
 from sparkrdma_tpu_torch.models.terasort import TeraSorter
+from sparkrdma_tpu_torch.parallel.group import as_group
+
+EXTERNAL_SORT_ITEM = (
+    "ROADMAP.md, 'Next, in order', item 3: ExternalTeraSorter over a "
+    "group of D > 1 ranks"
+)
 
 
 class ExternalTeraSorter:
@@ -43,7 +53,13 @@ class ExternalTeraSorter:
         spill_dir: Optional[str] = None,
         max_split_depth: int = 4,
         direct_io: str = "auto",
+        group=None,
     ):
+        ranks = 1 if group is None else as_group(group).size
+        if ranks > 1:
+            raise NotImplementedError(
+                f"ExternalTeraSorter over {ranks} ranks is not ported yet "
+                f"({EXTERNAL_SORT_ITEM})")
         self.sorter = TeraSorter(device)
         self.device = self.sorter.device
         self.num_buckets = int(num_buckets)

@@ -1,4 +1,4 @@
-"""Equi-joins on one GPU, the SQL-exchange workloads: the port of
+"""Equi-joins, the SQL-exchange workloads: the port of
 ``sparkrdma_tpu/models/join.py``.
 
 The star-schema shape of TPC-DS q64/q72: a large FACT table joined to a
@@ -6,9 +6,16 @@ DIMENSION table whose join keys are unique.
 
 - :class:`HashJoiner`, the exchange-shuffle join: both sides merge into
   one packed (key, role, payload) stream, which one hash exchange moves
-  (the identity on one device), then each device probes its rows.
-- :class:`BroadcastJoiner`, the broadcast join: the dimension side is
-  replicated and only the fact side is sharded; no exchange.
+  (three ``all_to_all``s over the group; the identity on one device),
+  then each rank probes the rows it owns.
+- :class:`BroadcastJoiner`, the broadcast join: every rank holds the
+  whole dimension table (the JAX step's replicated ``P(None)`` input,
+  Spark's broadcast variable) and its own shard of the fact side; no
+  exchange.
+
+At D > 1 each rank passes its own shards (both sides for the hash join,
+the fact side for the broadcast join) and gets back its joined rows;
+the union over the ranks is the whole join.
 
 The probe is one sort keyed (key, role), role 0 = valid dimension, 1 =
 valid fact, 2 = invalid, so each key's run opens with its dimension
@@ -37,13 +44,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.models._base import (
-    ExchangeModel,
-    quantize_padded_length,
-)
+from sparkrdma_tpu_torch.models._base import ExchangeModel
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_role
+from sparkrdma_tpu_torch.ops.partition import (
+    hash_partition_ids,
+    partition_to_buckets_dropping,
+)
 from sparkrdma_tpu_torch.ops.scan_kernels import scan_flagged
-from sparkrdma_tpu_torch.parallel.device import require_one_device
+from sparkrdma_tpu_torch.parallel.group import step_group
 
 # role column: dimension rows sort before fact rows of the same key;
 # invalid (padding) rows sort last and never match
@@ -144,31 +152,52 @@ def _check_rows(what: str, n_left: int, n_right: int, lk, rk) -> None:
         )
 
 
+def _exchange_packed(ku, role, pay, group, capacity: int):
+    """The hash exchange of the packed stream: buckets by the murmur3 of
+    the key word, invalid rows to the trash bucket, fill slots (0,
+    invalid, 0).  Returns the received (key, role, payload) stream and
+    the largest true bucket fill."""
+    D = group.size
+    (bk, br, bp), counts = partition_to_buckets_dropping(
+        hash_partition_ids(ku, D), role != _ROLE_INVALID, (ku, role, pay),
+        D, capacity, fill_values=(0, _ROLE_INVALID, 0))
+    eku, erole, epay = (group.all_to_all(b).reshape(-1)
+                        for b in (bk, br, bp))
+    return eku, erole, epay, counts.max().reshape(1)
+
+
 def make_hash_join_step(n_devices: int, n_left: int, n_right: int,
-                        capacity: int):
-    """The fused-exchange join step over [D * n_left] fact and
-    [D * n_right] dimension columns (keys, values, int32 0/1 validity):
+                        capacity: int, group=None):
+    """The fused-exchange join step over this rank's [n_left] fact and
+    [n_right] dimension columns (keys, values, int32 0/1 validity):
     both sides ride one hash exchange as a packed stream, then probe.
     Returns fn(lk, lv, l_valid, rk, rv, r_valid) -> (keys_u, fact_pay,
     dim_pay, found, is_fact, fill[1]); ``fill`` is the largest bucket
-    fill for the overflow retry (0 on one device)."""
-    require_one_device(n_devices, "The hash join")
+    fill for the overflow retry (0 on one device).  ``group`` is the
+    exchange group of D > 1 ranks."""
+    g = step_group(n_devices, group, "The hash join")
 
     def step(lk, lv, l_valid, rk, rv, r_valid):
         _check_rows("hash join", n_left, n_right, lk, rk)
         ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
-        fill = torch.zeros(1, dtype=torch.int32, device=ku.device)
+        if g is None:
+            fill = torch.zeros(1, dtype=torch.int32, device=ku.device)
+        else:
+            ku, role, pay, fill = _exchange_packed(ku, role, pay, g,
+                                                   capacity)
         return (*_probe_packed(ku, role, pay), fill)
 
     return step
 
 
-def make_broadcast_join_step(n_devices: int, n_left: int, n_right_total: int):
-    """The broadcast join step: fact side [D * n_left] sharded,
-    dimension side [n_right_total] replicated.  Returns fn(lk, lv,
-    l_valid, rk, rv, r_valid) -> (keys_u, fact_pay, dim_pay, found,
-    is_fact)."""
-    require_one_device(n_devices, "The broadcast join")
+def make_broadcast_join_step(n_devices: int, n_left: int, n_right_total: int,
+                             group=None):
+    """The broadcast join step: this rank's [n_left] fact rows against
+    the whole [n_right_total] dimension table, which every rank holds.
+    Returns fn(lk, lv, l_valid, rk, rv, r_valid) -> (keys_u, fact_pay,
+    dim_pay, found, is_fact).  No collective runs; ``group`` names the
+    D > 1 ranks it runs in."""
+    step_group(n_devices, group, "The broadcast join")
 
     def step(lk, lv, l_valid, rk, rv, r_valid):
         _check_rows("broadcast join", n_left, n_right_total, lk, rk)
@@ -197,40 +226,45 @@ class HashJoiner(ExchangeModel):
         """inner -> (keys, fact_vals, dim_vals) for matching fact rows;
         left_outer -> (keys, fact_vals, dim_vals, matched) for ALL fact
         rows (dim_vals is 0 where unmatched); semi/anti -> (keys,
-        fact_vals) for matched/unmatched fact rows.  Input order is not
-        preserved."""
+        fact_vals) for matched/unmatched fact rows.  At D > 1 both
+        sides are this rank's shards and the rows are those this rank
+        owns.  Input order is not preserved."""
         lk, lv = _as_columns(fact_keys, fact_vals)
         rk, rv = _as_columns(dim_keys, dim_vals)
-        D = self.n_devices
-        lk, lv, l_valid, nl = _pad_to(lk, lv, D, self.quantize_shapes)
-        rk, rv, r_valid, nr = _pad_to(rk, rv, D, self.quantize_shapes)
+        (nl, nr), _full = self._local_length(lk.shape[0], rk.shape[0])
+        lk, lv, l_valid = _pad_to(lk, lv, nl)
+        rk, rv, r_valid = _pad_to(rk, rv, nr)
         placed = self._to_device(*(torch.from_numpy(x) for x in
                                    (lk, lv, l_valid, rk, rv, r_valid)))
 
         def attempt(factor: float):
             # one capacity for the fused fact+dim stream
-            cap = self._capacity((nl + nr) // D, factor)
-            step = make_hash_join_step(D, nl // D, nr // D, cap)
+            cap = self._capacity(nl + nr, factor)
+            step = make_hash_join_step(self.n_devices, nl, nr, cap,
+                                       self.group)
             *rows, fill = step(*placed)
-            return rows, int(fill.max()) > cap
+            return rows, self._overflowed(fill, cap)
 
         rows = self._retry_with_factor(attempt)
         return _mask_output(*rows, lk.dtype, lv.dtype, rv.dtype, how)
 
 
 class BroadcastJoiner(ExchangeModel):
-    """Broadcast join: the dimension side replicated to every device;
+    """Broadcast join: the dimension side replicated to every rank;
     ``how`` picks the variant (:data:`JOIN_HOWS`)."""
 
     def join(self, fact_keys, fact_vals, dim_keys, dim_vals,
              how: str = "inner"):
-        """Same output contract as :meth:`HashJoiner.join`."""
+        """Same output contract as :meth:`HashJoiner.join`; at D > 1
+        the fact side is this rank's shard and the dimension side the
+        whole table."""
         lk, lv = _as_columns(fact_keys, fact_vals)
         rk, rv = _as_columns(dim_keys, dim_vals)
-        D = self.n_devices
-        lk, lv, l_valid, nl = _pad_to(lk, lv, D, self.quantize_shapes)
+        nl = self._ladder(lk.shape[0])
+        lk, lv, l_valid = _pad_to(lk, lv, nl)
         r_valid = np.ones(rk.shape[0], np.int32)
-        step = make_broadcast_join_step(D, nl // D, rk.shape[0])
+        step = make_broadcast_join_step(self.n_devices, nl, rk.shape[0],
+                                        self.group)
         rows = step(*self._to_device(*(torch.from_numpy(x) for x in
                                        (lk, lv, l_valid, rk, rv, r_valid))))
         return _mask_output(*rows, lk.dtype, lv.dtype, rv.dtype, how)
@@ -270,15 +304,13 @@ def _as_columns(keys, vals) -> Tuple[np.ndarray, np.ndarray]:
     return k, v
 
 
-def _pad_to(k, v, d, quantize=True):
-    """Pad numpy columns to a multiple of ``d`` on the shape ladder
-    (``quantize_padded_length``) with an int32 validity column."""
+def _pad_to(k, v, total):
+    """Pad numpy columns to ``total`` rows with an int32 validity
+    column."""
     n = k.shape[0]
-    total = quantize_padded_length(n, d) if quantize else n + ((-n) % d)
-    n_pad = total - n
     valid = np.ones(total, np.int32)
-    if n_pad:
+    if total > n:
         valid[n:] = 0
-        k = np.concatenate([k, np.zeros(n_pad, k.dtype)])
-        v = np.concatenate([v, np.zeros(n_pad, v.dtype)])
-    return k, v, valid, total
+        k = np.concatenate([k, np.zeros(total - n, k.dtype)])
+        v = np.concatenate([v, np.zeros(total - n, v.dtype)])
+    return k, v, valid

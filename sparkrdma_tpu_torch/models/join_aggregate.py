@@ -14,6 +14,12 @@ one sort serves both stages:
 
 Outputs use the run-end layout of ``aggregate_by_key_local`` (entries
 where ``counts > 0``).
+
+At D > 1 each rank joins its fact shard against the whole dimension
+table and aggregates its own rows; the host driver then agrees on the
+largest group count, pads, all-gathers every rank's (gk, sums, counts,
+mins, maxs) rows and merges them on every rank (two-phase aggregation's
+final combine), so each rank returns the whole table.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from sparkrdma_tpu_torch.ops.segment import (
     _prev_end,
     segmented_scan,
 )
-from sparkrdma_tpu_torch.parallel.device import require_one_device
+from sparkrdma_tpu_torch.parallel.group import ExchangeGroup, step_group
 
 GroupKeyFn = Callable[[torch.Tensor], torch.Tensor]
 AggValFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -79,10 +85,12 @@ def make_broadcast_join_aggregate_step(
     n_right_total: int,
     group_key_fn: GroupKeyFn,
     agg_val_fn: Optional[AggValFn] = None,
+    group=None,
 ):
-    """The fused step: fact side [D * n_left], dimension side
-    [n_right_total] replicated.  Returns fn(lk, lv, l_valid, rk, rv,
-    r_valid) -> run-end partial aggregates ``(gk, sums, counts, mins,
+    """The fused step: this rank's [n_left] fact rows, the whole
+    [n_right_total] dimension table on every rank; no collective runs,
+    and ``group`` names the D > 1 ranks it runs in.  Returns fn(lk, lv,
+    l_valid, rk, rv, r_valid) -> run-end partial aggregates ``(gk, sums, counts, mins,
     maxs, n_groups[1])``, ``gk`` a transport word.
 
     Hooks see int64 tensors of the transport view: for a 4-byte
@@ -97,7 +105,7 @@ def make_broadcast_join_aggregate_step(
     signed transport width.  Hooks key the step cache by identity: pass
     module-level functions, not fresh lambdas.
     """
-    require_one_device(n_devices, "The broadcast join+aggregate")
+    step_group(n_devices, group, "The broadcast join+aggregate")
 
     def step(lk, lv, l_valid, rk, rv, r_valid):
         _check_rows("broadcast join+aggregate", n_left, n_right_total, lk, rk)
@@ -156,14 +164,18 @@ class BroadcastJoinAggregator(ExchangeModel):
             group_key_fn = _identity_group_key
         lk, lv = _as_columns(fact_keys, fact_vals)
         rk, rv = _as_columns(dim_keys, dim_vals)
-        D = self.n_devices
-        lk, lv, l_valid, nl = _pad_to(lk, lv, D, self.quantize_shapes)
+        nl = self._ladder(lk.shape[0])
+        lk, lv, l_valid = _pad_to(lk, lv, nl)
         r_valid = np.ones(rk.shape[0], np.int32)
         step = make_broadcast_join_aggregate_step(
-            D, nl // D, rk.shape[0], group_key_fn, agg_val_fn)
-        gk, sums, counts, mins, maxs, _n = step(*self._to_device(
+            self.n_devices, nl, rk.shape[0], group_key_fn, agg_val_fn,
+            self.group)
+        rows = step(*self._to_device(
             *(torch.from_numpy(x) for x in (lk, lv, l_valid, rk, rv,
-                                            r_valid))))
+                                            r_valid))))[:5]
+        if self.n_devices > 1:
+            rows = _gather_partials(self.group, rows)
+        gk, sums, counts, mins, maxs = rows
         # transport words read as signed, then as the join key's dtype
         # (the _mask_output contract), so negative keys round-trip
         gk_h = gk.cpu().numpy().astype(lk.dtype, copy=False)
@@ -187,6 +199,18 @@ class BroadcastJoinAggregator(ExchangeModel):
                               min(prev.min, st.min), max(prev.max, st.max))
             out[key] = st
         return out
+
+
+def _gather_partials(group: ExchangeGroup, rows):
+    """Every rank's real partial rows (counts > 0), padded to the
+    largest count with counts 0, all-gathered: [D * G] each."""
+    real = rows[2] > 0
+    rows = [r[real] for r in rows]
+    (g,) = group.agree_max(rows[0].shape[0])
+    if g == 0:
+        return rows
+    return [group.all_gather(torch.cat([r, r.new_zeros(g - r.shape[0])]))
+            .reshape(-1) for r in rows]
 
 
 def _identity_group_key(key_u):

@@ -1,11 +1,29 @@
-"""TeraSort (sortByKey) on one GPU: the port of
-``sparkrdma_tpu/models/terasort.py``.
+"""TeraSort (sortByKey): the port of ``sparkrdma_tpu/models/terasort.py``.
 
-This slice ports the ``n_devices == 1`` branches: a distributed sort on
-one device IS the local sort, so sampling, windowing, the all_to_all
-and the merge are skipped.  The output contract is kept: a run of
-length ``capacity`` padded with the key dtype's max, ``n_valid``, and
-``max_fill`` for the overflow retry.
+At D > 1 every rank runs one step on its own shard
+(``models/_base.py``):
+
+    local sort -> exact-quantile sample -> all_gather -> splitters
+    -> contiguous destination windows -> all_to_all -> merge
+
+Each rank sorts its local pairs first, so the sample is an exact local
+quantile sketch and the destination windows are contiguous runs of the
+sorted arrays: one gather of ``starts[:, None] + arange(capacity)``
+fills the ``[D, capacity]`` send block, with no per-destination loop
+and no read of ``starts`` on the host.  The windows move with three
+``all_to_all``s (keys, values, per-source valid counts) and the received
+runs are merged by one sort with validity as the second key.  The step
+is factored into its rank-local halves, :func:`sort_and_sample` and
+:func:`fill_windows` on the map side and :func:`merge_received` on the
+reduce side, which run on one device as they run in a rank of a group.
+Rank r's output is its sorted run; the runs concatenated in rank order
+are the global sort.
+
+At D = 1 a distributed sort IS the local sort, so sampling, windowing,
+the all_to_all and the merge are skipped.  Both keep the output
+contract: a run of length ``capacity`` (``D * capacity`` at D > 1)
+padded with the key dtype's max, ``n_valid``, and ``max_fill`` for the
+overflow retry.
 
 Validity is a 0/1 column ordered as a secondary sort key, so padding
 sorts after every real record of the same key: real keys equal to the
@@ -21,9 +39,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.models._base import ExchangeModel, check_dtypes
+from sparkrdma_tpu_torch.models._base import (
+    ExchangeModel,
+    as_tensor,
+    carry_keys,
+    carry_values,
+    restore_keys,
+    restore_values,
+)
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid
-from sparkrdma_tpu_torch.parallel.device import require_one_device
+from sparkrdma_tpu_torch.ops.partition import make_range_splitters
+from sparkrdma_tpu_torch.parallel.group import step_group
 
 
 def _pad_rows(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
@@ -38,11 +64,100 @@ def _pad_rows(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
     return torch.cat([x, tail])
 
 
-def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int):
-    """One device's sort.  ``valid`` is int32 0/1 or None (everything
-    valid, no validity operand).  Returns (keys' [capacity],
-    vals' [capacity], n_valid int32[1], max_fill int32[1])."""
-    require_one_device(n_devices, "TeraSort")
+def sort_and_sample(keys, vals, valid, sample_size: int):
+    """Map side, first half: sort this rank's rows by (key, validity)
+    and take the exact local quantiles ``k[(arange(S) * n) // S]``.
+    ``valid`` is int32 0/1 or None (every row real); invalid rows get
+    the dtype-max key, so validity within the sorted run is a suffix.
+    ``vals`` is ``[n]`` or ``[n, W]`` payload rows.  Returns (k, v,
+    n_real int32 0-d, sample [S])."""
+    n_local = keys.shape[0]
+    if valid is None:
+        k, perm = torch.sort(keys, stable=True)
+        n_real = torch.full((), n_local, dtype=torch.int32,
+                            device=keys.device)
+    else:
+        inv = 1 - valid.to(torch.int32)
+        keys = torch.where(valid > 0, keys, torch.iinfo(keys.dtype).max)
+        perm = perm_by_key_invalid(keys, inv)
+        k = keys[perm]
+        n_real = valid.sum(dtype=torch.int32)
+    v = vals.index_select(0, perm)
+    at = (torch.arange(sample_size, device=keys.device) * n_local
+          ) // sample_size
+    return k, v, n_real, k[at]
+
+
+def fill_windows(k, v, n_real, splitters, capacity: int):
+    """Map side, second half: destination p gets the keys in
+    ``[splitters[p-1], splitters[p])``, a contiguous window of the
+    sorted run, found by ``searchsorted(right=True)``.  One gather of
+    ``starts[:, None] + arange(capacity)`` (clamped to the run) fills
+    the send block; slots past a window's count hold (dtype max, 0), and
+    payload rows there are left as gathered.  Returns (keys [D, cap],
+    vals [D, cap(, W)], valid counts int32 [D], true counts int32 [D])."""
+    n_local = k.shape[0]
+    dev = k.device
+    n_parts = splitters.shape[0] + 1
+    edges = torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.searchsorted(k, splitters, right=True),
+        torch.full((1,), n_local, dtype=torch.int64, device=dev),
+    ])
+    counts = edges[1:] - edges[:-1]
+    starts = edges[:-1]
+    # real rows of window p: everything before the invalid tail at n_real
+    valid_counts = (torch.minimum(edges[1:], n_real.to(torch.int64))
+                    - starts).clamp(0, capacity)
+    slot = torch.arange(capacity, device=dev)
+    window_valid = slot[None, :] < counts.clamp(max=capacity)[:, None]
+    at = (starts[:, None] + slot[None, :]).clamp(max=n_local - 1)
+    bk = torch.where(window_valid, k[at], torch.iinfo(k.dtype).max)
+    bv = v.index_select(0, at.reshape(-1)).reshape(
+        n_parts, capacity, *v.shape[1:])
+    if v.dim() == 1:
+        bv = torch.where(window_valid, bv, 0)
+    return bk, bv, valid_counts.to(torch.int32), counts.to(torch.int32)
+
+
+def merge_received(rk, rv, rvalid):
+    """Reduce side: merge the ``[D, cap]`` block the all_to_all
+    delivered (row s from rank s, its first ``rvalid[s]`` slots real)
+    by one sort keyed (key, invalid), so padding sorts last even where
+    its key equals a real max-valued key.  ``rv`` is ``[D, cap]`` or
+    ``[D, cap, W]``.  Returns (keys [D*cap], vals [D*cap(, W)],
+    n_valid int32[1])."""
+    n_parts, cap = rk.shape
+    slot = torch.arange(cap, device=rk.device)
+    riv = (slot[None, :] >= rvalid[:, None]).to(torch.int32).reshape(-1)
+    flat_k = rk.reshape(-1)
+    perm = perm_by_key_invalid(flat_k, riv)
+    sv = rv.reshape(n_parts * cap, *rv.shape[2:]).index_select(0, perm)
+    return flat_k[perm], sv, rvalid.sum(dtype=torch.int32).reshape(1)
+
+
+def _exchange_step(keys, vals, valid, group, capacity: int,
+                   sample_size: int):
+    """One rank's step at D > 1 (module docstring)."""
+    k, v, n_real, sample = sort_and_sample(keys, vals, valid, sample_size)
+    splitters = make_range_splitters(group.all_gather(sample).reshape(-1),
+                                     group.size)
+    bk, bv, valid_counts, counts = fill_windows(k, v, n_real, splitters,
+                                                capacity)
+    rk, rv = group.all_to_all(bk), group.all_to_all(bv)
+    rvalid = group.all_to_all(valid_counts.reshape(-1, 1)).reshape(-1)
+    sk, sv, n_valid = merge_received(rk, rv, rvalid)
+    return sk, sv, n_valid, counts.max().reshape(1)
+
+
+def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int,
+                     sample_size: int = 1024, group=None):
+    """One rank's sort.  ``valid`` is int32 0/1 or None (everything
+    valid, no validity operand).  Returns (keys' [D * capacity], vals',
+    n_valid int32[1], max_fill int32[1])."""
+    g = step_group(n_devices, group, "TeraSort")
+    if g is not None:
+        return _exchange_step(keys, vals, valid, g, capacity, sample_size)
     n_local = keys.shape[0]
     sentinel = torch.iinfo(keys.dtype).max
     if valid is None:
@@ -63,12 +178,15 @@ def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int):
     return k, v, n_valid, max_fill
 
 
-def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int):
+def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int,
+                          sample_size: int = 1024, group=None):
     """Wide-record variant (the HiBench TeraSort shape): the key sort
-    carries a row index, and the payload rows [n, W] follow by one row
-    gather.  Returns (keys' [capacity], payload' [capacity, W],
+    carries a row index, and the payload rows [n, W] follow by row
+    gathers.  Returns (keys' [D * capacity], payload' [D * capacity, W],
     n_valid int32[1], max_fill int32[1])."""
-    require_one_device(n_devices, "TeraSort")
+    g = step_group(n_devices, group, "TeraSort")
+    if g is not None:
+        return _exchange_step(keys, payload, None, g, capacity, sample_size)
     n_local = keys.shape[0]
     sentinel = torch.iinfo(keys.dtype).max
     k, perm = torch.sort(keys, stable=True)
@@ -81,75 +199,138 @@ def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int):
     return k, p, n_valid, max_fill
 
 
+def _check_rows(what: str, n_local: int, keys) -> None:
+    if keys.shape[0] != n_local:
+        raise ValueError(f"{what} step made for {n_local} rows per rank "
+                         f"got {keys.shape[0]}")
+
+
+def _check_group(n_devices: int, n_local: int, group) -> None:
+    if step_group(n_devices, group, "TeraSort") is not None and n_local < 1:
+        raise ValueError("a TeraSort rank needs at least one row (pad "
+                         "with a validity column)")
+
+
+def make_sort_step(n_devices: int, n_local: int, capacity: int,
+                   sample_size: int = 1024, with_validity: bool = True,
+                   group=None):
+    """The sort step over this rank's ``[n_local]`` (keys, vals(,
+    valid)): fn(...) -> (keys' [D * capacity], vals', n_valid[1],
+    max_fill[1]), the counterpart of the JAX ``make_sort_step``.
+    ``group`` is the exchange group of D > 1 ranks."""
+    _check_group(n_devices, n_local, group)
+    sample_size = min(sample_size, max(1, n_local))
+
+    if with_validity:
+        def step(k, v, valid):
+            _check_rows("sort", n_local, k)
+            return _local_sort_step(k, v, valid, n_devices, capacity,
+                                    sample_size, group)
+    else:
+        def step(k, v):
+            _check_rows("sort", n_local, k)
+            return _local_sort_step(k, v, None, n_devices, capacity,
+                                    sample_size, group)
+    return step
+
+
+def make_wide_sort_step(n_devices: int, n_local: int, payload_words: int,
+                        capacity: int, sample_size: int = 1024, group=None):
+    """The wide-record sort step: fn(keys [n_local], payload [n_local,
+    W]) -> (keys' [D * capacity], payload' [D * capacity, W], n_valid[1],
+    max_fill[1])."""
+    _check_group(n_devices, n_local, group)
+    sample_size = min(sample_size, max(1, n_local))
+
+    def step(k, p):
+        _check_rows("wide sort", n_local, k)
+        if p.dim() != 2 or p.shape[1] != payload_words:
+            raise ValueError(f"payload must be [n, {payload_words}], got "
+                             f"{tuple(p.shape)}")
+        return _local_sort_wide_step(k, p, n_devices, capacity, sample_size,
+                                     group)
+    return step
+
+
 class TeraSorter(ExchangeModel):
     """Host-facing driver for the sort (the sortByKey job)."""
 
-    def __init__(self, device=None, capacity_factor: float = 1.3, **kw):
+    def __init__(self, device=None, capacity_factor: float = 1.3,
+                 sample_size: int = 1024, **kw):
         super().__init__(device, capacity_factor, **kw)
+        self.sample_size = sample_size
 
     def sort_device(self, keys: torch.Tensor, vals: torch.Tensor,
                     valid: Optional[torch.Tensor] = None,
                     capacity: Optional[int] = None):
-        """One sort step on device tensors whose length divides D.
-        Returns ((keys', vals', n_valid[1], max_fill[1]), capacity);
-        nothing is synchronised."""
-        n = keys.shape[0]
-        if n % self.n_devices:
-            raise ValueError(f"length {n} not divisible by D={self.n_devices}")
-        check_dtypes(keys=keys, vals=vals)
-        cap = capacity or self._capacity(n // self.n_devices)
-        keys, vals, valid = self._to_device(keys, vals, valid)
-        return _local_sort_step(keys, vals, valid, self.n_devices, cap), cap
+        """One sort step on this rank's device tensors (every rank passes
+        as many rows).  Returns ((keys', vals', n_valid[1],
+        max_fill[1]), capacity) in the caller's dtypes; nothing is
+        synchronised."""
+        n_local = keys.shape[0]
+        key_dtype, val_dtype = keys.dtype, vals.dtype
+        ck, cv = carry_keys(keys), carry_values(vals, "payload")
+        cap = capacity or self._capacity(n_local)
+        ck, cv, valid = self._to_device(ck, cv, valid)
+        step = make_sort_step(self.n_devices, n_local, cap,
+                              self.sample_size, valid is not None,
+                              self.group)
+        sk, sv, n_valid, max_fill = step(ck, cv) if valid is None else \
+            step(ck, cv, valid)
+        return (restore_keys(sk, key_dtype),
+                restore_values(sv, val_dtype, "payload"),
+                n_valid, max_fill), cap
 
     def sort_device_wide(self, keys: torch.Tensor, payload: torch.Tensor,
                          capacity: Optional[int] = None):
         """Wide-record sort step (HiBench shape): ``payload`` is [n, W]
-        rows that follow their keys.  Returns ((keys', payload' [cap, W],
-        n_valid[1], max_fill[1]), capacity)."""
-        n = keys.shape[0]
-        if n % self.n_devices:
-            raise ValueError(f"length {n} not divisible by D={self.n_devices}")
-        if payload.dim() != 2 or payload.shape[0] != n:
+        rows that follow their keys.  Returns ((keys', payload' [D *
+        cap, W], n_valid[1], max_fill[1]), capacity)."""
+        n_local = keys.shape[0]
+        if payload.dim() != 2 or payload.shape[0] != n_local:
             raise ValueError(f"payload must be [n, W], got {payload.shape}")
-        check_dtypes(keys=keys)
-        cap = capacity or self._capacity(n // self.n_devices)
-        keys, payload = self._to_device(keys, payload)
-        out = _local_sort_wide_step(keys, payload, self.n_devices, cap)
-        return out, cap
+        key_dtype = keys.dtype
+        cap = capacity or self._capacity(n_local)
+        ck, payload = self._to_device(carry_keys(keys), payload)
+        step = make_wide_sort_step(self.n_devices, n_local,
+                                   payload.shape[1], cap, self.sample_size,
+                                   self.group)
+        sk, sp, n_valid, max_fill = step(ck, payload)
+        return (restore_keys(sk, key_dtype), sp, n_valid, max_fill), cap
 
     def sort(self, keys, vals=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Full host-facing sortByKey: returns (sorted_keys, sorted_vals)."""
+        """Host-facing sortByKey of this rank's shard: returns
+        (sorted_keys, sorted_vals), this rank's sorted run (at D = 1
+        the whole sort)."""
         keys = np.asarray(keys)
         vals = np.zeros_like(keys) if vals is None else np.asarray(vals)
         if keys.shape != vals.shape or keys.ndim != 1:
             raise ValueError("keys/vals must be equal-length 1-D arrays")
-        check_dtypes(keys=keys, vals=vals)
+        tk, tv = as_tensor(keys), as_tensor(vals)
+        ck, cv = carry_keys(tk), carry_values(tv, "payload")
         n = keys.shape[0]
-        if n == 0:
+        (n_local,), full = self._local_length(n)
+        if n_local == 0:
             return keys.copy(), vals.copy()
-        D = self.n_devices
-        n_pad = self._padded_length(n) - n
         valid = None
-        if n_pad:
-            sentinel = np.iinfo(keys.dtype).max
-            keys = np.concatenate([keys, np.full(n_pad, sentinel, keys.dtype)])
-            vals = np.concatenate([vals, np.zeros(n_pad, vals.dtype)])
-            valid = np.ones(n + n_pad, np.int32)
+        if not full:
+            pad = n_local - n
+            ck = torch.cat([ck, ck.new_full((pad,),
+                                            torch.iinfo(ck.dtype).max)])
+            cv = torch.cat([cv, cv.new_zeros(pad)])
+            valid = torch.ones(n_local, dtype=torch.int32)
             valid[n:] = 0
-        tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
-        tval = None if valid is None else torch.from_numpy(valid)
-        tk, tv, tval = self._to_device(tk, tv, tval)
+        ck, cv, valid = self._to_device(ck, cv, valid)
 
         def run(cap):
-            (sk, sv, n_valid, max_fill), _ = self.sort_device(
-                tk, tv, tval, capacity=cap
-            )
+            step = make_sort_step(self.n_devices, n_local, cap,
+                                  self.sample_size, valid is not None,
+                                  self.group)
+            sk, sv, n_valid, max_fill = step(ck, cv) if valid is None else \
+                step(ck, cv, valid)
             return (sk, sv, n_valid), max_fill
 
-        sk, sv, n_valid = self._run_with_overflow_retry(n + n_pad, run)
-        sk_h = sk.cpu().numpy().reshape(D, -1)
-        sv_h = sv.cpu().numpy().reshape(D, -1)
-        nv = n_valid.cpu().numpy().reshape(-1)
-        out_k = np.concatenate([sk_h[d, : nv[d]] for d in range(D)])
-        out_v = np.concatenate([sv_h[d, : nv[d]] for d in range(D)])
-        return out_k, out_v
+        sk, sv, n_valid = self._run_with_overflow_retry(n_local, run)
+        nv = int(n_valid[0])
+        return (restore_keys(sk[:nv], tk.dtype).cpu().numpy(),
+                restore_values(sv[:nv], tv.dtype, "payload").cpu().numpy())

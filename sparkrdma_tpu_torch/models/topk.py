@@ -1,5 +1,5 @@
-"""Grouped top-k on one GPU, the rank/LIMIT-per-group SQL shape: the
-port of ``sparkrdma_tpu/models/topk.py``.
+"""Grouped top-k, the rank/LIMIT-per-group SQL shape: the port of
+``sparkrdma_tpu/models/topk.py``.
 
 TPC-DS q67-style plans rank rows within each group and keep the top k
 (``row_number() over (partition by key order by value desc) <= k``):
@@ -7,6 +7,9 @@ TPC-DS q67-style plans rank rows within each group and keep the top k
   hash exchange (the identity on one device) -> one sort keyed (key,
   validity, value descending via bitwise complement) -> per-run rank
   from a run-end forward fill (kernel 1) -> rank < k mask.
+
+A key lives on one rank after the exchange, so at D > 1 each rank
+returns the final top-k lists of the keys it owns.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from sparkrdma_tpu_torch.models._base import ExchangeModel
 from sparkrdma_tpu_torch.ops.exchange import hash_exchange
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid_value
 from sparkrdma_tpu_torch.ops.segment import _ff_run_carry
-from sparkrdma_tpu_torch.parallel.device import require_one_device
+from sparkrdma_tpu_torch.parallel.group import step_group
 
 
 def _rank_in_runs(ks: torch.Tensor, valid_s: torch.Tensor) -> torch.Tensor:
@@ -38,16 +41,18 @@ def _rank_in_runs(ks: torch.Tensor, valid_s: torch.Tensor) -> torch.Tensor:
     return iota - run_start
 
 
-def make_topk_step(n_devices: int, n_local: int, capacity: int, k: int):
-    """Grouped top-k over [D * n_local] (keys, values, int32 0/1
-    validity): returns fn(...) -> (keys', vals', keep, n_keep[1],
+def make_topk_step(n_devices: int, n_local: int, capacity: int, k: int,
+                   group=None, unsigned_keys: bool = False):
+    """Grouped top-k over this rank's [n_local] (keys, values, int32
+    0/1 validity): returns fn(...) -> (keys', vals', keep, n_keep[1],
     max_fill[1]) with keep = 1 on the top-k rows of each key (value
-    descending; ties in any order)."""
-    require_one_device(n_devices, "Grouped top-k")
+    descending; ties in any order).  ``group`` and ``unsigned_keys`` as
+    in ``hash_exchange``."""
+    step_group(n_devices, group, "Grouped top-k")
 
     def step(keys, vals, valid):
         flat_k, flat_v, flat_m, max_fill = hash_exchange(
-            keys, vals, valid, n_devices, capacity)
+            keys, vals, valid, n_devices, capacity, group, unsigned_keys)
         flat_k = torch.where(flat_m > 0, flat_k,
                              torch.iinfo(flat_k.dtype).max)
         # the complement reverses the order of signed ints, and undoes
@@ -63,11 +68,13 @@ def make_topk_step(n_devices: int, n_local: int, capacity: int, k: int):
     return step
 
 
-def _make_step_with_k(n_devices, n_local, capacity, k, with_validity=True):
+def _make_step_with_k(n_devices, n_local, capacity, k, with_validity=True,
+                      group=None, unsigned_keys=False):
     """The step maker signature of ``ExchangeModel._run_padded_keyed``;
     the validity-free path reuses the general step with every slot
     valid (the rank needs the validity run delimiter anyway)."""
-    step = make_topk_step(n_devices, n_local, capacity, k)
+    step = make_topk_step(n_devices, n_local, capacity, k, group,
+                          unsigned_keys)
     if with_validity:
         return step
 
@@ -85,18 +92,19 @@ class GroupedTopK(ExchangeModel):
         super().__init__(device, capacity_factor, **kw)
 
     def top_k(self, keys, vals, k: int) -> Dict[int, List[int]]:
+        """{key: its k largest values, descending} for the keys this
+        rank owns; integer values of any width, uint32 included."""
         if k <= 0:
             raise ValueError(f"k must be positive: {k}")
         step_maker = functools.partial(_make_step_with_k, k=k)
-        rows, _nu = self._run_padded_keyed(keys, vals, step_maker)
+        rows, _nu = self._run_padded_keyed(keys, vals, step_maker, "order")
         if rows is None:
             return {}
         ks_h, vs_h, keep_h = rows
+        mask = keep_h > 0
         out: Dict[int, List[int]] = {}
-        for d in range(self.n_devices):
-            mask = keep_h[d] > 0
-            for kk, vv in zip(ks_h[d][mask], vs_h[d][mask]):
-                out.setdefault(int(kk), []).append(int(vv))
+        for kk, vv in zip(ks_h[mask].tolist(), vs_h[mask].tolist()):
+            out.setdefault(kk, []).append(vv)
         # rows arrive key-grouped and value-descending, and a key lives
-        # on one device, so each list is already the final top-k
+        # on one rank, so each list is already the final top-k
         return out

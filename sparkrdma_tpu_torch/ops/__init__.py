@@ -3,6 +3,7 @@ from sparkrdma_tpu_torch.ops.attention import (
     block_attention,
     block_attention_plain,
 )
+from sparkrdma_tpu_torch.ops.exchange import hash_exchange
 from sparkrdma_tpu_torch.ops.partition import (
     bucketize_segments,
     hash_partition_ids,
@@ -40,6 +41,7 @@ __all__ = [
     "bucket_cap",
     "bucketize_segments",
     "cumsum_1d",
+    "hash_exchange",
     "hash_partition_ids",
     "make_range_splitters",
     "partition_to_buckets",

@@ -38,7 +38,7 @@ NEG_INF = -1e30
 BLOCK_Q = 128   # query rows per CUDA block (bfloat16 kernel)
 BLOCK_K = 128   # keys per step of its loop over the K/V block
 D_HEADS = (64, 128)
-KERNEL_ITEM = "ROADMAP.md, 'Next, in order', item 2: kernel 3's other d_head"
+KERNEL_ITEM = "ROADMAP.md, 'Next, in order', item 1: kernel 3's other d_head"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = _build.LaunchCounter("block_attention")

@@ -1,10 +1,13 @@
 """Device selection: the counterpart of ``sparkrdma_tpu/parallel/mesh.py``.
 
-The JAX package fixes a 1-D ``Mesh`` over the chosen devices; this port
-runs one process per GPU, and the shuffle models run on ONE device (the
-process group of ``parallel/group.py`` serves the attention path).  The
-device is CUDA unless the caller asks for the CPU (as the tests do);
-there is no silent drop to the CPU when CUDA is absent.
+The JAX package fixes a 1-D ``Mesh`` over the chosen devices and runs
+one SPMD program over all of them from one process.  This port runs one
+process per GPU instead: a model over D > 1 devices is built in each
+rank of a D-rank ``torch.distributed`` group (``group=``, see
+``parallel/group.py``), and each rank passes its own shard.  Without a
+group a model runs on ONE device.  The device is CUDA unless the caller
+asks for the CPU (as the tests do); there is no silent drop to the CPU
+when CUDA is absent.
 """
 
 from __future__ import annotations
@@ -15,21 +18,15 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-MULTI_GPU_ITEM = (
-    "ROADMAP.md, 'Next, in order', item 1: Multi-GPU exchange "
-    "(hash_exchange, then the D > 1 TeraSort, joins and top-k over "
-    "torch.distributed)"
-)
 
-
-def require_one_device(n_devices: int, what: str) -> None:
-    """Raise NotImplementedError naming the multi-GPU item unless
-    ``n_devices`` is 1."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"{what} over {n_devices} devices is not ported yet "
-            f"({MULTI_GPU_ITEM})"
-        )
+def one_process_per_gpu(what: str, n: int) -> str:
+    """The refusal for ``n`` > 1 devices without a group."""
+    return (
+        f"{what} over {n} devices: the port runs one process per GPU, so "
+        f"build it in each rank of a {n}-rank torch.distributed group and "
+        f"pass group= (an ExchangeGroup or the process group); each rank "
+        f"passes its own shard"
+    )
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -54,28 +51,21 @@ def select_devices(
     device_list: Optional[Sequence[int]] = None,
     device: DeviceLike = None,
 ) -> List[torch.device]:
-    """Pick the devices serving the exchange (``mesh_devices`` analog:
-    ``device_list`` selects CUDA ordinals, ``n_devices`` takes the first
-    n).  This slice supports exactly one device: more than one, by
-    either argument, raises ``NotImplementedError``, and an ordinal the
-    host lacks raises ``ValueError``."""
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={n_devices}: multi-GPU exchange is not ported yet "
-            f"({MULTI_GPU_ITEM})"
-        )
+    """The one device of a process that runs without a group
+    (``mesh_devices`` analog: ``device_list`` selects a CUDA ordinal,
+    ``n_devices`` counts devices).  More than one device, by either
+    argument, raises ``ValueError`` (:func:`one_process_per_gpu`), and
+    so does an ordinal the host lacks."""
+    picked = list(device_list or [])
+    n = max(n_devices or 1, len(picked))
+    if n > 1:
+        raise ValueError(one_process_per_gpu("an exchange", n))
     base = resolve_device(device)
     if base.type == "cpu":
-        if device_list and list(device_list) != [0]:
+        if picked and picked != [0]:
             raise ValueError("device_list selects CUDA devices only")
         return [base]
-    if device_list:
-        picked = list(device_list)
-        if len(picked) > 1:
-            raise NotImplementedError(
-                f"device_list {picked}: multi-GPU exchange is not ported "
-                f"yet ({MULTI_GPU_ITEM})"
-            )
+    if picked:
         avail = torch.cuda.device_count()
         if not 0 <= picked[0] < avail:
             raise ValueError(

@@ -19,9 +19,13 @@ import torch
 from sparkrdma_tpu_torch import _build
 from sparkrdma_tpu_torch.models import join as tjoin
 from sparkrdma_tpu_torch.models import join_aggregate as tja
+from sparkrdma_tpu_torch.models import terasort as tts
 from sparkrdma_tpu_torch.models import topk as ttopk
+from sparkrdma_tpu_torch.models import wordcount as twc
 from sparkrdma_tpu_torch.ops import attention as tattn
+from sparkrdma_tpu_torch.ops import partition as tpart
 from sparkrdma_tpu_torch.ops import scan_kernels as tscan
+from sparkrdma_tpu_torch.ops import segment as tseg
 from sparkrdma_tpu_torch.ops import sort_kernel as tsort
 
 I32 = np.iinfo(np.int32)
@@ -254,6 +258,69 @@ def test_topk_step_matches_cpu_on_card(cuda_device):
         (rng.random(SQL_N) < 0.9).astype(np.int32))]
     step = ttopk.make_topk_step(1, SQL_N, SQL_N, 100)
     _same_on_card_and_cpu(step, cols, cuda_device, 1)
+
+
+STAGE_RANKS = 8
+
+
+def _terasort_stages(keys, vals, valid, device):
+    """One D = 8 rank's map side (sort, sample, splitters from its own
+    sample, window fill) and the merge of the [8, cap] block it sends
+    itself, every intermediate kept."""
+    k, v = torch.from_numpy(keys).to(device), torch.from_numpy(vals).to(device)
+    m = None if valid is None else torch.from_numpy(valid).to(device)
+    sk, sv, n_real, sample = tts.sort_and_sample(k, v, m, 1024)
+    splitters = tpart.make_range_splitters(sample, STAGE_RANKS)
+    bk, bv, vc, counts = tts.fill_windows(sk, sv, n_real, splitters,
+                                          keys.shape[0])
+    return (sk, sv, n_real, sample, splitters, bk, bv, vc, counts,
+            *tts.merge_received(bk, bv, vc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_terasort_rank_stages_match_cpu_on_card(cuda_device, wide):
+    """TeraSort's rank-local stages at 2^17 rows on the card against
+    the CPU, bit for bit: 8 B pairs with a validity column, or 100 B
+    rows."""
+    rng = np.random.default_rng(5)
+    keys = _keys("dups_extremes", SQL_N, rng)
+    vals = rng.integers(I32.min, I32.max, (SQL_N, 24) if wide else SQL_N,
+                        dtype=np.int32)
+    valid = None if wide else (rng.random(SQL_N) < 0.9).astype(np.int32)
+    want = _terasort_stages(keys, vals, valid, "cpu")
+    got = _terasort_stages(keys, vals, valid, cuda_device)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def _keyed_stages(keys, vals, device):
+    """One D = 8 rank's keyed map side and the reduction of the block
+    it sends itself."""
+    k, v = torch.from_numpy(keys).to(device), torch.from_numpy(vals).to(device)
+    valid = torch.ones_like(k)
+    ids = tpart.hash_partition_ids(k, STAGE_RANKS)
+    cap = keys.shape[0] // 2
+    (bk, bv, bm), counts = tpart.partition_to_buckets_dropping(
+        ids, valid > 0, (k, v, valid), STAGE_RANKS, cap,
+        fill_values=(I32.max, 0, 0))
+    pk, pv, pm, _fill = twc._premask(bk.reshape(-1), bv.reshape(-1),
+                                     bm.reshape(-1), 1, cap)
+    return (ids, bk, bv, bm, counts, *tseg.reduce_by_key_local(pk, pv, pm))
+
+
+@pytest.mark.gpu
+def test_keyed_rank_stages_match_cpu_on_card(cuda_device):
+    rng = np.random.default_rng(6)
+    keys = _keys("random", SQL_N, rng) % 5000
+    vals = rng.integers(-1000, 1000, SQL_N, dtype=np.int32)
+    want = _keyed_stages(keys, vals, "cpu")
+    _build.reset_launch_counts()
+    got = _keyed_stages(keys, vals, cuda_device)
+    assert _build.launch_counts()["flagged_scan"] >= 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.gpu

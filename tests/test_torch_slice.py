@@ -19,11 +19,20 @@ import jax.numpy as jnp
 
 from sparkrdma_tpu.models import TeraSorter as JTeraSorter
 from sparkrdma_tpu.models import WordCounter as JWordCounter
+from sparkrdma_tpu.models import aggregate as jagg
+from sparkrdma_tpu.models import external_sort as jext
 from sparkrdma_tpu.models.aggregate import KeyedAggregator as JAggregator
+from sparkrdma_tpu.models.topk import GroupedTopK as JGroupedTopK
 from sparkrdma_tpu.models._base import quantize_padded_length as jquant
 from sparkrdma_tpu.ops import segment as jseg
 from sparkrdma_tpu.parallel import make_mesh
-from sparkrdma_tpu_torch import KeyedAggregator, TeraSorter, WordCounter
+from sparkrdma_tpu_torch import (
+    ExternalTeraSorter,
+    GroupedTopK,
+    KeyedAggregator,
+    TeraSorter,
+    WordCounter,
+)
 from sparkrdma_tpu_torch import interop
 from sparkrdma_tpu_torch.models._base import quantize_padded_length
 from sparkrdma_tpu_torch.ops import segment as tseg
@@ -232,6 +241,186 @@ def test_int64_keys_and_values_are_kept():
     assert stats[1 << 40] == ((1 << 35) + 2, 2, 2, 1 << 35)
 
 
+# -- the dtypes the JAX package takes (uint32 and int16 keys, float32
+# values, uint32 and int16 top-k values): integers bit for bit, float
+# sums within F32_SUM_ATOL, in the caller's dtype
+
+U32 = np.iinfo(np.uint32)
+F32_SUM_ATOL = 0.1  # float32 prefix-sum differences, as in test_torch_exchange
+
+
+def _dtype_keys(dtype, n, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == "uint32":
+        pool = rng.integers(0, U32.max, 61, endpoint=True).astype(np.uint32)
+        pool[:3] = [U32.max, 0, 1 << 31]
+        return pool[rng.integers(0, 61, n)]
+    k = rng.integers(-100, 100, n).astype(np.int16)
+    k[:3] = [32767, -32768, -1]
+    return k
+
+
+@pytest.mark.parametrize("n", [5, 1000, 4099])
+@pytest.mark.parametrize("dtype", ["uint32", "int16"])
+def test_terasort_dtypes_match_jax(mesh1, dtype, n):
+    k = _dtype_keys(dtype, n, n)
+    v = np.random.default_rng(n).integers(-500, 500, n).astype(k.dtype)
+    wk, wv = JTeraSorter(mesh1).sort(k, v)
+    gk, gv = TeraSorter(device=CPU).sort(k, v)
+    assert gk.dtype == k.dtype and gv.dtype == v.dtype
+    np.testing.assert_array_equal(gk, np.asarray(wk))
+    for g, w in zip(_canon_pairs(gk, gv), _canon_pairs(np.asarray(wk),
+                                                         np.asarray(wv))):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_terasort_float32_values_match_jax(mesh1):
+    k, _v = _data(3001, 4)
+    v = np.random.default_rng(5).standard_normal(3001).astype(np.float32)
+    wk, wv = JTeraSorter(mesh1).sort(k, v)
+    gk, gv = TeraSorter(device=CPU).sort(k, v)
+    assert gv.dtype == np.float32
+    np.testing.assert_array_equal(gk, np.asarray(wk))
+    for g, w in zip(_canon_pairs(gk, gv), _canon_pairs(np.asarray(wk),
+                                                         np.asarray(wv))):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int16"])
+def test_sort_device_dtypes_match_jax(mesh1, dtype):
+    """The padded run keeps the caller's dtype and its max as the
+    sentinel."""
+    n = 2048
+    k = _dtype_keys(dtype, n, 11)
+    v = np.arange(n).astype(k.dtype)
+    m = _valid(n, 12)
+    (wk, wv, wn, wf), wcap = JTeraSorter(mesh1).sort_device(
+        *map(jnp.asarray, (k, v, m)), capacity=n + 64)
+    (gk, gv, gn, gf), gcap = TeraSorter(device=CPU).sort_device(
+        *interop.to_torch(k, v, m, device=CPU), capacity=n + 64)
+    assert gk.dtype == getattr(torch, dtype) and gv.dtype == gk.dtype
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    assert int(gn[0]) == int(wn[0]) and int(gf[0]) == int(wf[0])
+    nv = int(gn[0])
+    for g, w in zip(_canon_pairs(gk.numpy()[:nv], gv.numpy()[:nv]),
+                    _canon_pairs(np.asarray(wk)[:nv], np.asarray(wv)[:nv])):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int16"])
+def test_keyed_dtypes_match_jax(mesh1, dtype):
+    """WordCount (default and given values) and aggregate; uint32 and
+    int16 values wrap in their dtype as JAX's do."""
+    k = _dtype_keys(dtype, 3001, 21)
+    v = np.random.default_rng(22).integers(-30000, 30000, 3001).astype(
+        k.dtype)
+    assert WordCounter(device=CPU).count(k) == JWordCounter(mesh1).count(k)
+    assert WordCounter(device=CPU).count(k, v) == \
+        JWordCounter(mesh1).count(k, v)
+    got = KeyedAggregator(device=CPU).aggregate(k, v)
+    want = JAggregator(mesh1).aggregate(k, v)
+    assert got == {key: tuple(s) for key, s in want.items()}
+
+
+def test_int16_sums_wrap_like_jax(mesh1):
+    k = np.zeros(20, np.int16)
+    v = np.full(20, 30000, np.int16)
+    assert WordCounter(device=CPU).count(k, v) == \
+        JWordCounter(mesh1).count(k, v) == {0: 20 * 30000 - 9 * 65536}
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int16"])
+@pytest.mark.parametrize("model", ["count", "aggregate"])
+def test_keyed_device_dtypes_match_jax(mesh1, dtype, model):
+    """count_device / aggregate_device in the caller's dtypes.  uint32
+    keys ride in unsigned order, so every slot matches, the uint32-max
+    sentinels included.  int16 keys widen: the padding's int32 sentinel
+    ends the run of a real int16-max key before it, where JAX's one run
+    holds both, so there the run-end rows match as a set."""
+    n = 1500
+    k = _dtype_keys(dtype, n, 31)
+    v = np.random.default_rng(32).integers(-900, 900, n).astype(k.dtype)
+    m = _valid(n, 33)
+    if model == "count":
+        got, cap = WordCounter(device=CPU).count_device(
+            *interop.to_torch(k, v, m, device=CPU))
+        want, wcap = JWordCounter(mesh1).count_device(
+            *map(jnp.asarray, (k, v, m)))
+        assert cap == wcap
+    else:
+        got, cap = KeyedAggregator(device=CPU).aggregate_device(
+            *interop.to_torch(k, v, m, device=CPU))
+        want = jagg.make_aggregate_step(mesh1, n, cap)(
+            *map(jnp.asarray, (k, v, m)))
+    got = [g.numpy() for g in got]
+    want = [np.asarray(w).reshape(-1) for w in want]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+    np.testing.assert_array_equal(got[-2:], want[-2:])  # n_unique, fill
+    rows = got[:-2]
+    if dtype == "uint32":
+        np.testing.assert_array_equal(rows, want[:-2])
+    real = [r[rows[2] > 0] for r in rows]
+    wreal = [r[want[2] > 0] for r in want[:-2]]
+    assert sorted(zip(*(r.tolist() for r in real))) == \
+        sorted(zip(*(r.tolist() for r in wreal)))
+
+
+def test_keyed_float32_values_match_jax(mesh1):
+    """The JAX drivers hand float sums back truncated to int; the port
+    keeps them float32, within F32_SUM_ATOL of a float64 sum and 1 +
+    F32_SUM_ATOL of the JAX integer; min and max exact."""
+    rng = np.random.default_rng(41)
+    k = rng.integers(-60, 60, 3000).astype(np.int32)
+    v = (rng.standard_normal(3000) * 100).astype(np.float32)
+    u, inv = np.unique(k, return_inverse=True)
+    exact = dict(zip(u.tolist(), np.bincount(
+        inv, weights=v.astype(np.float64)).tolist()))
+    got = WordCounter(device=CPU).count(k, v)
+    want = JWordCounter(mesh1).count(k, v)
+    stats = KeyedAggregator(device=CPU).aggregate(k, v)
+    wstats = JAggregator(mesh1).aggregate(k, v)
+    assert set(got) == set(want) == set(exact) == set(stats)
+    for key, s in got.items():
+        st = stats[key]
+        assert isinstance(s, float) and isinstance(st.sum, float)
+        for total in (s, st.sum):
+            assert abs(total - exact[key]) <= F32_SUM_ATOL
+            assert abs(total - want[key]) <= 1 + F32_SUM_ATOL
+        sel = v[k == key]
+        assert (st.count, st.min, st.max) == (sel.size, float(sel.min()),
+                                              float(sel.max()))
+        assert (st.count, int(st.min), int(st.max)) == tuple(wstats[key])[1:]
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int16"])
+@pytest.mark.parametrize("k", [1, 4, 300])
+def test_topk_value_dtypes_match_jax(mesh1, dtype, k):
+    rng = np.random.default_rng(51)
+    keys = rng.integers(0, 30, 2000).astype(np.int32)
+    info = np.iinfo(dtype)
+    vals = rng.integers(info.min, info.max, 2000, endpoint=True).astype(dtype)
+    vals[:2] = [info.max, info.min]
+    assert GroupedTopK(device=CPU).top_k(keys, vals, k) == \
+        JGroupedTopK(mesh1).top_k(keys, vals, k)
+
+
+def test_external_sort_uint32_keys_match_jax(mesh1, tmp_path):
+    rng = np.random.default_rng(61)
+    keys = rng.integers(0, U32.max, 4096, endpoint=True).astype(np.uint32)
+    keys[:2] = [U32.max, 0]
+    vals = np.arange(4096, dtype=np.int32)
+    wk, wv = jext.ExternalTeraSorter(mesh1, spill_dir=str(tmp_path)).sort(
+        keys, vals)
+    gk, gv = ExternalTeraSorter(CPU, spill_dir=str(tmp_path)).sort(keys, vals)
+    assert gk.dtype == np.uint32
+    np.testing.assert_array_equal(gk, np.asarray(wk))
+    np.testing.assert_array_equal(gk, np.sort(keys))
+    for g, w in zip(_canon_pairs(gk, gv), _canon_pairs(np.asarray(wk),
+                                                         np.asarray(wv))):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("n", [0, 1, 16, 17, 1000, 4097, (1 << 20) + 3])
 def test_quantize_padded_length_matches_jax(n):
     assert quantize_padded_length(n, 1) == jquant(n, 1)
@@ -249,14 +438,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(n_devices=2), dict(n_devices=8)])
 def test_multi_device_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """More than one device takes a group: one process per GPU, each
+    rank building the model with ``group=`` (tests/test_torch_exchange.py
+    runs them)."""
+    with pytest.raises(ValueError, match="one process per GPU.*group="):
         TeraSorter(device=CPU, **kw)
 
 
 @pytest.mark.parametrize(
     "kw,err",
-    [(dict(device_list=[0, 5]), NotImplementedError),
-     (dict(n_devices=1, device_list=[0, 1]), NotImplementedError),
+    [(dict(device_list=[0, 5]), ValueError),
+     (dict(n_devices=1, device_list=[0, 1]), ValueError),
      (dict(device_list=[5]), ValueError),
      (dict(device_list=[-1]), ValueError)],
 )

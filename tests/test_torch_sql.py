@@ -29,7 +29,7 @@ from sparkrdma_tpu.models import join_aggregate as jja
 from sparkrdma_tpu.models import topk as jtopk
 from sparkrdma_tpu.ops import partition as jpart
 from sparkrdma_tpu.parallel import make_mesh
-from sparkrdma_tpu_torch import interop
+from sparkrdma_tpu_torch import ExchangeGroup, interop
 from sparkrdma_tpu_torch.models import aggregate as tagg
 from sparkrdma_tpu_torch.models import external_sort as text
 from sparkrdma_tpu_torch.models import join as tjoin
@@ -776,18 +776,39 @@ def test_window_copy_matches_jax():
 
 
 STEP_MAKERS = {
-    "hash_join": lambda d: tjoin.make_hash_join_step(d, 8, 8, 16),
-    "broadcast_join": lambda d: tjoin.make_broadcast_join_step(d, 8, 8),
-    "join_aggregate": lambda d: tja.make_broadcast_join_aggregate_step(
-        d, 8, 8, _t_gk17, None),
-    "topk": lambda d: ttopk.make_topk_step(d, 8, 16, 3),
+    "hash_join": lambda d, g=None: tjoin.make_hash_join_step(
+        d, 8, 8, 16, group=g),
+    "broadcast_join": lambda d, g=None: tjoin.make_broadcast_join_step(
+        d, 8, 8, group=g),
+    "join_aggregate": lambda d, g=None: tja.make_broadcast_join_aggregate_step(
+        d, 8, 8, _t_gk17, None, group=g),
+    "topk": lambda d, g=None: ttopk.make_topk_step(d, 8, 16, 3, group=g),
 }
+
+
+class _TwoRanks(ExchangeGroup):
+    """Rank 0 of a two-rank group, for building steps (the collectives
+    run in tests/test_torch_exchange.py's gloo worlds)."""
+
+    def __init__(self):
+        self.device, self.group, self.rank, self.size = (
+            torch.device(CPU), None, 0, 2)
 
 
 @pytest.mark.parametrize("maker", sorted(STEP_MAKERS))
 def test_step_makers_refuse_more_than_one_device(maker):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Over more than one device a step needs the group it runs in (one
+    process per GPU); with one of the right size it builds."""
+    with pytest.raises(ValueError, match="one process per GPU.*group="):
         STEP_MAKERS[maker](2)
+    with pytest.raises(ValueError, match="made for 4 devices"):
+        STEP_MAKERS[maker](4, _TwoRanks())
+    assert callable(STEP_MAKERS[maker](2, _TwoRanks()))
+
+
+def test_external_sort_refuses_more_than_one_rank():
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        text.ExternalTeraSorter(CPU, group=_TwoRanks())
 
 
 def test_sql_entry_points_raise_without_cuda(monkeypatch):
