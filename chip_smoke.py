@@ -6,19 +6,24 @@
 Builds the hand-written kernels of ``sparkrdma_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card,
 drives the port's main paths at full size through their user entry
-points (TeraSort 8 B and 100 B records, the two-phase block sort
-engine, WordCount and aggregateByKey over Zipf keys, the SQL-exchange
-models: hash and broadcast joins, the TPC-DS q64/q72-shaped pipeline
-with and without the fused join+aggregate, grouped top-k, hash
-partitioning and the external sort, the rank-local stages of one rank
+points (TeraSort 8 B and 100 B records, the port's bench
+``sparkrdma_tpu_torch.bench`` and compile entry ``entry()``, the
+two-phase block sort engine, WordCount and aggregateByKey over Zipf
+keys, the SQL-exchange models: hash and broadcast joins, the TPC-DS
+q64/q72-shaped pipeline with and without the fused join+aggregate,
+grouped top-k, hash partitioning and the external sort, the rank-local
+stages of one rank
 of a D = 8 exchange (TeraSort's map side and merge, the keyed map side
 and reduction), and causal sequence-parallel attention through
 ``ring_attention`` and ``ulysses_attention`` on a group of one, 8 heads
 x 8192 and x 32768, d_head 128, bfloat16), checks every result against
 an independent torch oracle, and shows through the launch counters
-that the main paths ran the kernels.  With two or more cards it also
-runs TeraSort, WordCount and the hash join over NCCL on up to four of
-them; with one it prints that this did not run.
+that the main paths ran the kernels.  Kernel 3 is also held against
+its plain version in float32, bfloat16 and float16 at d_head 32, 64,
+96, 128 and 256, and timed at d 256 (bfloat16) and d 128 (float16).
+With two or more cards it also runs TeraSort, WordCount, the hash join
+and the external sort over NCCL on up to four of them; with one it
+prints that this did not run.
 float32 matrix products run without TF32 throughout, so the plain
 versions and oracles are full float32.
 
@@ -70,6 +75,9 @@ STAGE_WIDE_N = WIDE_N // STAGE_RANKS
 MULTI_SORT_N = 1 << 24      # multi_gpu, per rank
 MULTI_FACT_N = 1 << 22
 MULTI_DIM_N = 1 << 16
+MULTI_EXT_N = 1 << 22       # multi_gpu external sort, per rank
+MULTI_EXT_CHUNKS = 4
+MULTI_EXT_BUCKETS = 16
 U32 = (1 << 32) - 1
 # float32 "add" sums in another order in the kernel (sequential per
 # thread, then a tree) than in the log-step plain version; segments
@@ -89,11 +97,20 @@ NEG_INF = -1e30
 # - l: the kernel's fast exponential and order of summation: rtol 1e-4;
 # - o: float32 within 1e-4 of its largest magnitude; bfloat16 within
 #   2^-7 of it, since the kernel rounds p to bfloat16 against the running
-#   max of each 128-key tile and the plain version against the row max
-#   (one bfloat16 rounding, 2^-9 relative, per term of the sum).
+#   max of each K tile and the plain version against the row max (one
+#   bfloat16 rounding, 2^-9 relative, per term of the sum); float16
+#   within 2^-10 of it (one float16 rounding, 2^-11 relative, per term).
 ATTN_M_TOL = 1e-5
 ATTN_L_RTOL = 1e-4
-ATTN_O_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+ATTN_O_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# kernel 3's tensor-core instantiations (element type, compiled d_head);
+# the wrapper pads any other d_head <= 256 to the next compiled one
+ATTN_TC_TYPES = ("Bf16", "F16")
+ATTN_TC_D = (64, 128, 256)
+ATTN_DTYPES = ("bfloat16", "float16", "float32")
+ATTN_CHECK_D = (32, 64, 96, 128, 256)
+# extra attention_time shapes at 8 x 8192, causal: (d_head, dtype)
+ATTN_TIME_EXTRA = ((256, "bfloat16"), (128, "float16"))
 # Attention outputs in bfloat16 against the float32 oracle (or each
 # other): the output's own rounding (2^-9 relative) plus p's rounding
 # before p . v (2^-9 per term).
@@ -242,9 +259,10 @@ def _sass_counts(_build, ops=("HGMMA", "UTMALDG", "HMMA")):
 
 def phase_build(_build):
     """Build the kernels, print the ptxas lines of kernels 1, 2 and 3
-    (registers, shared memory, spills), and check in the SASS that
-    kernel 3's bfloat16 path runs on wgmma (HGMMA) fed by TMA (UTMALDG),
-    with no mma.sync (HMMA) left."""
+    (registers, shared memory, spills), and check in the SASS that each
+    of kernel 3's tensor-core instantiations (bfloat16 and float16 at
+    d 64, 128 and 256) runs on wgmma (HGMMA) fed by TMA (UTMALDG), with
+    no mma.sync (HMMA) left."""
     t0 = time.monotonic()
     _build.load()
     secs = time.monotonic() - t0
@@ -253,13 +271,20 @@ def phase_build(_build):
                    "block_attention.cu"):
             print(f"# ptxas {src} {name}: {used} | {spill}")
     sass = {k: v for k, v in _sass_counts(_build).items()
-            if "attention_bf16" in k}
-    require(len(sass) == 2, f"expected two attention_bf16 kernels: {sass}")
+            if "attention_tc" in k}
+    require(len(sass) == len(ATTN_TC_TYPES) * len(ATTN_TC_D),
+            f"expected {len(ATTN_TC_TYPES) * len(ATTN_TC_D)} attention_tc "
+            f"kernels: {sass}")
+    for ty in ATTN_TC_TYPES:
+        for d in ATTN_TC_D:
+            require(any(f"attention_tc<{ty}, {d}>" in k for k in sass),
+                    f"attention_tc<{ty}, {d}> is not in the library: "
+                    f"{list(sass)}")
     for name, c in sass.items():
         require(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                 f"{name}: SASS {c} lacks wgmma or TMA, or has mma.sync")
     phase("build", seconds=secs, sources=[p.name for p in _build.sources()],
-          sass_attention_bf16=sass)
+          sass_attention_tc=sass)
 
 
 def _adversarial(torch, case, n, gen, dev):
@@ -552,6 +577,47 @@ def phase_terasort_wide(torch, ts, gen, dev):
           gb_per_s=WIDE_N * rec / ms / 1e6, correct=True)
 
 
+def phase_bench(torch):
+    """``python -m sparkrdma_tpu_torch.bench``'s function once on this
+    card (8 B records at 2^24, then HiBench 100 B records at 2^22): its
+    ``#`` line and its JSON line are printed here as earlier lines."""
+    from sparkrdma_tpu_torch import bench
+
+    t0 = time.monotonic()
+    comment, record = bench.run(device="cuda")
+    secs = time.monotonic() - t0
+    require(set(record) == {"metric", "value", "unit", "vs_baseline"}
+            and record["unit"] == "GB/s/chip"
+            and math.isfinite(record["value"]) and record["value"] > 0
+            and record["vs_baseline"] == record["value"]
+            / bench.BASELINE_GBPS, f"bench line breaks its contract: {record}")
+    print(comment, flush=True)
+    print(json.dumps(record), flush=True)
+    phase("bench", seconds=secs, gb_per_s_per_card=record["value"],
+          vs_baseline=record["vs_baseline"], correct=True)
+
+
+def phase_entry(torch):
+    """``sparkrdma_tpu_torch.entry.entry()``: its step on its args on the
+    card, the output a sorted permutation of the input pairs with the
+    padding after it."""
+    from sparkrdma_tpu_torch.entry import entry
+
+    fn, args = entry()
+    require(all(a.is_cuda for a in args), "entry() args are not on the card")
+    keys, vals, _valid = args
+    sk, sv, n_valid, max_fill = fn(*args)
+    torch.cuda.synchronize()
+    nv = int(n_valid[0])
+    require(nv == keys.numel(), f"entry step kept {nv} of {keys.numel()}")
+    _check_pairs_sorted(torch, keys, vals, sk[:nv], sv[:nv], "entry step")
+    require(bool((sk[nv:] == torch.iinfo(torch.int32).max).all()),
+            "entry step padding is not the sentinel")
+    ms = cuda_ms(lambda: fn(*args), iters=10)
+    phase("entry", n_local=keys.numel(), capacity=sk.numel(), n_valid=nv,
+          max_fill=int(max_fill[0]), ms=ms, correct=True)
+
+
 def phase_sort_engine(torch, sk_mod, _build, keys, vals):
     _build.reset_launch_counts()
     ok, ov, valid, fn, overflow = sk_mod.sort_pairs_full_checked(
@@ -688,25 +754,28 @@ def _check_partials(torch, got, want, dtype, what):
 
 
 def phase_attention_check(torch, attn, gen, dev):
-    """Kernel 3 against its plain version: dtypes, d_head, causal, a
-    ragged shape, rows masked fully and partly."""
+    """Kernel 3 against its plain version: every dtype (float32,
+    bfloat16, float16), d_head at each compiled size (64, 128, 256) and
+    padded ones (32, 96), causal and not, a ragged shape, rows masked
+    fully and partly."""
     worst = 0.0
     cases = [(dt, d, causal, n, s_q, s_k, qo, ko)
-             for dt in ("bfloat16", "float32") for d in (64, 128)
+             for dt in ATTN_DTYPES for d in ATTN_CHECK_D
              for causal in (False, True)
              for n, s_q, s_k, qo, ko in ((4, 2048, 2048, 0, 0),
                                          (3, 1000, 1500, 500, 0))]
     cases += [(dt, 128, True, 3, 1000, 1500, qo, ko)
-              for dt in ("bfloat16", "float32")
+              for dt in ATTN_DTYPES
               for qo, ko in ((0, 1000), (0, 300))]
     # 128-row q tiles straddling the diagonal at nonzero offsets, rows
     # masked throughout, a K block wholly in the future, a ring hop
     cases += [(dt, d, True, n, s_q, s_k, qo, ko)
-              for dt in ("bfloat16", "float32") for d in (64, 128)
+              for dt in ATTN_DTYPES for d in ATTN_CHECK_D
               for n, s_q, s_k, qo, ko in ((2, 300, 500, 200, 0),
                                           (2, 300, 500, 0, 70),
                                           (2, 300, 500, 0, 400),
                                           (4, 1024, 1536, 1024, 512))]
+    per = {}
     for dt, d, causal, n, s_q, s_k, qo, ko in cases:
         dtype = getattr(torch, dt)
         q = _randn(torch, (n, s_q, d), dtype, gen, dev)
@@ -725,9 +794,17 @@ def phase_attention_check(torch, attn, gen, dev):
         m_err, l_err, o_err, o_lim = _check_partials(torch, got, want, dt,
                                                      what)
         worst = max(worst, o_err)
-        phase("attention_check", dtype=dt, d_head=d, causal=causal, n=n,
-              s_q=s_q, s_k=s_k, q_offset=qo, k_offset=ko, tf32=False,
-              m_err=m_err, l_rel_err=l_err, o_err=o_err, o_tol=o_lim)
+        row = per.setdefault((dt, d), dict(cases=0, m_err=0.0,
+                                           l_rel_err=0.0, o_err_over_tol=0.0))
+        row["cases"] += 1
+        row["m_err"] = max(row["m_err"], m_err)
+        row["l_rel_err"] = max(row["l_rel_err"], l_err)
+        row["o_err_over_tol"] = max(row["o_err_over_tol"], o_err / o_lim)
+    # one line per (dtype, d_head): the worst of its cases
+    for (dt, d), row in per.items():
+        phase("attention_check", dtype=dt, d_head=d,
+              kernel_d_head=attn.kernel_d_head(d), tf32=False,
+              o_tol_rel=ATTN_O_TOL[dt], **row)
     return worst
 
 
@@ -742,16 +819,18 @@ def _attention_bound(n, s, d, itemsize):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_attention_time(torch, attn, gen, dev):
-    """Kernel 3 at the bench shape, with its plain version and SDPA."""
-    shape = (ATTN_N, ATTN_S, ATTN_D)
-    q, k, v = (_randn(torch, shape, torch.bfloat16, gen, dev)
+def _attention_time(torch, attn, gen, dev, d, dt):
+    """Kernel 3 at 8 x 8192, causal, head size ``d`` in ``dt``: held
+    against its plain version, timed beside it and SDPA; prints its
+    ``attention_time`` line and returns its numbers."""
+    dtype = getattr(torch, dt)
+    q, k, v = (_randn(torch, (ATTN_N, ATTN_S, d), dtype, gen, dev)
                for _ in range(3))
-    scale = 1.0 / math.sqrt(ATTN_D)
+    scale = 1.0 / math.sqrt(d)
     got = attn.block_attention(q, k, v, 0, 0, True)
     want = attn.block_attention_plain(q, k, v, 0, 0, True, scale)
-    _m, _l, err, _lim = _check_partials(torch, got, want, "bfloat16",
-                                        "attention at the bench shape")
+    _m, _l, err, _lim = _check_partials(torch, got, want, dt,
+                                        f"attention {dt} d={d} at 8 x 8192")
     del got, want
     ms = cuda_ms(lambda: attn.block_attention(q, k, v, 0, 0, True),
                  iters=10)
@@ -760,14 +839,27 @@ def phase_attention_time(torch, attn, gen, dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = cuda_ms(lambda: sdpa(q[None], k[None], v[None], is_causal=True),
                   iters=10)
-    b_ms, b_by = _attention_bound(ATTN_N, ATTN_S, ATTN_D, 2)
-    unmasked = 4 * ATTN_D * ATTN_N * (ATTN_S * (ATTN_S + 1) // 2)
-    phase("attention_time", n=ATTN_N, seq=ATTN_S, d_head=ATTN_D,
-          dtype="bfloat16", causal=True, ms=ms, plain_ms=plain,
-          library_ms=lib, library="scaled_dot_product_attention "
-          "(normalises)", bound_ms=b_ms, bound_by=b_by,
+    b_ms, b_by = _attention_bound(ATTN_N, ATTN_S, d, 2)
+    unmasked = 4 * d * ATTN_N * (ATTN_S * (ATTN_S + 1) // 2)
+    phase("attention_time", n=ATTN_N, seq=ATTN_S, d_head=d, dtype=dt,
+          causal=True, ms=ms, plain_ms=plain, library_ms=lib,
+          library="scaled_dot_product_attention (normalises)",
+          bound_ms=b_ms, bound_by=b_by,
           unmasked_tflop_per_s=unmasked / ms / 1e9, max_abs_err=err)
-    del q, k, v
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_attention_time(torch, attn, gen, dev):
+    """Kernel 3 at the bench shape (8 x 8192, d 128, bfloat16, causal),
+    with its plain version and SDPA; at 8 x 8192 also at d 256 in
+    bfloat16 and d 128 in float16; and at 8 x 32768 beside SDPA.
+    Returns the bench shape's numbers, with the largest error of all."""
+    main = _attention_time(torch, attn, gen, dev, ATTN_D, "bfloat16")
+    for d, dt in ATTN_TIME_EXTRA:
+        err = _attention_time(torch, attn, gen, dev, d, dt)["max_abs_err"]
+        main["max_abs_err"] = max(main["max_abs_err"], err)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     # long context: the plain version's score matrix (34 GB) does not
     # fit, so the kernel runs beside SDPA alone; phase_ring checks it
     # against the oracle at this length
@@ -785,8 +877,7 @@ def phase_attention_time(torch, attn, gen, dev):
           library_ms=long_lib, library="scaled_dot_product_attention "
           "(normalises)", bound_ms=lb_ms, bound_by=lb_by,
           unmasked_tflop_per_s=unmasked / long_ms / 1e9)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by)
+    return main
 
 
 def _attention_oracle_err(torch, q, k, v, out):
@@ -1307,13 +1398,14 @@ def _lengths(torch, group, n):
     return group.all_gather(t).reshape(-1).tolist()
 
 
-def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim):
+def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim, n_ext):
     """TeraSort (``n_sort`` records per rank), WordCount (``n_sort`` Zipf
-    keys per rank) and the hash join (``n_fact`` fact and ``n_dim``
-    dimension rows per rank) through their host drivers on this rank's
-    shard of one seeded input, which every rank draws whole and checks
-    its share of against a one-card oracle.  Returns the host seconds
-    of each driver call."""
+    keys per rank), the hash join (``n_fact`` fact and ``n_dim``
+    dimension rows per rank) and the external sort (``n_ext`` records per
+    rank in chunks) through their host drivers on this rank's shard of
+    one seeded input, which every rank draws whole and checks its share
+    of against a one-card oracle.  Returns the host seconds of each
+    driver call."""
     import numpy as np
 
     from sparkrdma_tpu_torch import HashJoiner, TeraSorter, WordCounter
@@ -1343,8 +1435,9 @@ def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim):
     lo = sum(runs[:rank])
     whole = torch.sort(_packed_rows(torch, torch.from_numpy(keys).to(dev),
                                     torch.from_numpy(vals).to(dev))).values
-    got = _packed_rows(torch, torch.from_numpy(sk).to(dev),
-                       torch.from_numpy(sv).to(dev))
+    # values within equal keys come in any order: compare sorted rows
+    got = torch.sort(_packed_rows(torch, torch.from_numpy(sk).to(dev),
+                                  torch.from_numpy(sv).to(dev))).values
     require(bool((torch.from_numpy(sk[1:]) >= torch.from_numpy(sk[:-1]))
                  .all()), f"rank {rank}: TeraSort run unsorted")
     require(torch.equal(got, whole[lo:lo + len(sk)]),
@@ -1378,7 +1471,60 @@ def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim):
     require(np.array_equal(jd, dv[jk]), f"rank {rank}: join values differ")
     require(sum(_lengths(torch, group, len(jk)))
             == int((fk < n_dim * world).sum()), "multi-GPU join row count")
+
+    _multi_gpu_external_sort(torch, group, n_ext, timed)
     return times
+
+
+def _multi_gpu_external_sort(torch, group, n_ext, timed):
+    """``ExternalTeraSorter`` over the group: each rank feeds its own
+    stream of MULTI_EXT_CHUNKS chunks of its ``n_ext`` records, and
+    yields its owned range of each non-empty bucket.  Bucket b of rank r
+    must be the slice of the whole sort after buckets < b of every rank
+    and bucket b of ranks < r (compared as sorted rows: values within
+    equal keys come in any order)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sparkrdma_tpu_torch import ExternalTeraSorter
+
+    rank, world, dev = group.rank, group.size, group.device
+    rng = np.random.default_rng(13)
+    keys = rng.integers(0, 1 << 31, n_ext * world, dtype=np.int32)
+    vals = rng.integers(0, 1 << 31, n_ext * world, dtype=np.int32)
+    mk = keys[rank * n_ext:(rank + 1) * n_ext]
+    mv = vals[rank * n_ext:(rank + 1) * n_ext]
+    step = n_ext // MULTI_EXT_CHUNKS
+    spill = tempfile.mkdtemp(prefix="chip_smoke_extsort_")
+    try:
+        ext = ExternalTeraSorter(group=group, num_buckets=MULTI_EXT_BUCKETS,
+                                 spill_dir=spill)
+        outs = timed("external_sort_s", lambda: list(ext.sort_chunks(
+            (mk[i:i + step], mv[i:i + step]) for i in range(0, n_ext, step))))
+        left = os.listdir(spill)
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    require(not left, f"rank {rank}: external sort left spill files")
+    counts = _lengths(torch, group, len(outs))
+    require(len(set(counts)) == 1, f"external sort: runs per rank {counts}")
+    lens = group.all_gather(torch.tensor(
+        [len(k) for k, _ in outs], dtype=torch.int64,
+        device=dev)).cpu().reshape(world, -1)
+    require(int(lens.sum()) == n_ext * world,
+            "multi-GPU external sort lost records")
+    whole = torch.sort(_packed_rows(torch, torch.from_numpy(keys).to(dev),
+                                    torch.from_numpy(vals).to(dev))).values
+    for b, (k, v) in enumerate(outs):
+        lo = int(lens[:, :b].sum() + lens[:rank, b].sum())
+        require(bool((np.diff(k) >= 0).all()),
+                f"rank {rank}: external sort bucket {b} unsorted")
+        got = torch.sort(_packed_rows(torch, torch.from_numpy(k).to(dev),
+                                      torch.from_numpy(v).to(dev))).values
+        require(torch.equal(got, whole[lo:lo + len(k)]),
+                f"rank {rank}: external sort bucket {b} is not its slice "
+                "of the sort")
 
 
 def _multi_gpu_rank(rank, world, store, out_dir):
@@ -1394,7 +1540,8 @@ def _multi_gpu_rank(rank, world, store, out_dir):
                             rank=rank, world_size=world)
     try:
         times = multi_gpu_cases(torch, ExchangeGroup(dist.group.WORLD),
-                                MULTI_SORT_N, MULTI_FACT_N, MULTI_DIM_N)
+                                MULTI_SORT_N, MULTI_FACT_N, MULTI_DIM_N,
+                                MULTI_EXT_N)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(times, f)
     finally:
@@ -1402,10 +1549,10 @@ def _multi_gpu_rank(rank, world, store, out_dir):
 
 
 def phase_multi_gpu(torch):
-    """TeraSort, WordCount and the hash join over NCCL on min(cards, 4)
-    cards, one process per card, each rank against a one-card oracle;
-    a failure fails the run.  With one card nothing runs: NCCL refuses
-    two ranks on one GPU."""
+    """TeraSort, WordCount, the hash join and the external sort over NCCL
+    on min(cards, 4) cards, one process per card, each rank against a
+    one-card oracle; a failure fails the run.  With one card nothing
+    runs: NCCL refuses two ranks on one GPU."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -1425,6 +1572,9 @@ def phase_multi_gpu(torch):
     phase("multi_gpu", ran=True, cards=cards, ranks=world,
           sort_records_per_rank=MULTI_SORT_N,
           fact_rows_per_rank=MULTI_FACT_N, dim_rows_per_rank=MULTI_DIM_N,
+          external_sort_records_per_rank=MULTI_EXT_N,
+          external_sort_chunks_per_rank=MULTI_EXT_CHUNKS,
+          external_sort_buckets=MULTI_EXT_BUCKETS,
           seconds_max_over_ranks={k: max(t[k] for t in times)
                                   for k in times[0]}, correct=True)
 
@@ -1531,6 +1681,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_terasort_wide(torch, ts, gen, dev)
         torch.cuda.empty_cache()
+        phase_bench(torch)
+        torch.cuda.empty_cache()
+        phase_entry(torch)
         sort_k["launches"] = phase_sort_engine(torch, sk_mod, _build,
                                                keys, vals)
         del keys, vals

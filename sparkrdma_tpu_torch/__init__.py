@@ -11,11 +11,13 @@ two-phase block sort engine, WordCount (reduceByKey), keyed aggregation
 (aggregateByKey), and the SQL-exchange models: hash and broadcast joins
 (inner, left outer, semi, anti), the fused broadcast join + aggregate,
 grouped top-k and the external (larger-than-memory) sort.  Each runs
-on one GPU, or (all but the external sort) over a ``torch.distributed``
-exchange group of D GPUs, one process per GPU (``group=``): each rank
-passes its own shard and gets what it owns after the exchange.
-Sequence-parallel attention (ring and Ulysses) runs on an exchange
-group of any size, over the blockwise flash-attention kernel.
+on one GPU, or over a ``torch.distributed`` exchange group of D GPUs,
+one process per GPU (``group=``): each rank passes its own shard (the
+external sort: its own chunk stream) and gets what it owns after the
+exchange.  Sequence-parallel attention (ring and Ulysses) runs on an
+exchange group of any size, over the blockwise flash-attention kernel.
+``python -m sparkrdma_tpu_torch.bench`` is the TeraSort benchmark, and
+``sparkrdma_tpu_torch.entry.entry()`` the one-step compile entry.
 """
 
 from sparkrdma_tpu_torch.models import (

@@ -22,29 +22,39 @@
 // the work is 4 d N S^2 / 2 = 137 GFLOP of unmasked products against
 // 84 MB of inputs and outputs: bound by operations (tensor-core rate),
 // 0.139 ms at 989 TFLOP/s.  Hopper reaches that rate only through
-// wgmma, fed from shared memory that TMA fills, so the bf16 design is
+// wgmma, fed from shared memory that TMA fills, so the 16-bit design is
 // built around both.
 //
-// bfloat16 design (d = 64 or 128).  One CTA per (batch n, tile of 128
-// query rows), 384 threads in three warpgroups:
+// Head sizes.  Each design is compiled at d = 64, 128 and 256; the
+// wrapper (ops/attention.py) zero-pads q, k and v of any other d <= 256
+// to the next of these and cuts o back, which is exact (zero columns
+// add 0 to every score and give o columns that are cut off), with the
+// scale of the unpadded d passed in.
+//
+// 16-bit design (bfloat16 or float16, one template over the element
+// type E: the TMA element type, the wgmma operand type and the rounding
+// of p).  One CTA per (batch n, tile of 128 query rows), 384 threads in
+// three warpgroups:
 //  - warpgroup 2, the producer, gives up its registers (setmaxnreg 24)
 //    and one thread keeps TMA loads in flight: the q tile once, then K
-//    and V tiles of 128 keys into a ring of 2 stages each, with 128-byte
-//    swizzle (a d = 128 row is two 64-column panels).  Each stage has a
+//    and V tiles of kTK keys (128; 64 at d = 256) into a ring of 2
+//    stages each, with 128-byte swizzle (a row of d columns is d / 64
+//    panels of 64 columns).  Each stage has a
 //    "full" mbarrier (TMA transaction bytes) and an "empty" one (one
 //    arrival per consumer warp); K and V have their own, so the next K
 //    tile loads while the current p . v runs.
 //  - warpgroups 0 and 1, the consumers (setmaxnreg 240), own 64 query
-//    rows each.  S = q . k^T is wgmma m64n128k16 with both operands read
-//    from swizzled shared memory through descriptors (q stays there for
-//    the whole loop); the f32 accumulators are the scores.  The softmax
-//    runs on them in registers; p, rounded to bf16, becomes the A
-//    operand of o += p . v in registers (wgmma m64n{d}k16, A from
-//    registers, V from shared memory as an MN-major B), so the scores
-//    never touch shared memory.
+//    rows each.  S = q . k^T is wgmma m64n{kTK}k16 with both operands
+//    read from swizzled shared memory through descriptors (q stays
+//    there for the whole loop); the f32 accumulators are the scores.
+//    The softmax runs on them in registers; p, rounded to E (v's type),
+//    becomes the A operand of o += p . v in registers (wgmma
+//    m64n{d}k16, A from registers, V from shared memory as an MN-major
+//    B), so the scores never touch shared memory.
 //  - Within a warpgroup, tile j's q . k^T and tile j - 1's p . v are
 //    issued together, and tile j's softmax runs while that p . v is in
-//    flight (scores, p and o: about 160 live registers).  Between the
+//    flight (scores, p and o: kTK / 2 + kTK / 4 + d / 2 live registers,
+//    160 at d = 128 and 176 at d = 256).  Between the
 //    issue and the wait, nothing but wgmma touches an accumulator, or
 //    ptxas serialises the wgmmas (its C7514/C7515 notes); that is why q
 //    tiles masked throughout take a loop of their own.  The two consumer
@@ -66,18 +76,21 @@
 //    with m kept on the raw product (the scale is positive, so the row
 //    max is the same element) and scaled once at the end: x == m gives
 //    ex2(0) = 1 exactly, and NEG_INF stays NEG_INF.
-//  Shared memory: q 128 x d, K and V 2 x 128 x d each, in bf16: 160 KB
-//  at d = 128 (80 KB at d = 64), one CTA per SM.  ptxas: 168 registers
-//  a thread at launch (setmaxnreg moves them to the consumers), no
-//  spills at d = 64 or 128 (at 232 consumer registers d = 128 spilled 40
-//  bytes and ran slower); chip_smoke.py prints these lines.
+//  Shared memory: q 128 x d, K and V 2 x kTK x d each, 16-bit: 80 KB at
+//  d = 64, 160 KB at d = 128 and 192 KB at d = 256, one CTA per SM.
+//  ptxas: 168 registers a thread at launch (setmaxnreg moves them to
+//  the consumers), no spills at d = 64 or 128 (at 232 consumer
+//  registers d = 128 spilled 40 bytes and ran slower); chip_smoke.py
+//  prints these lines for every instantiation.
 //
 // float32 design: exact f32 FMAs on the CUDA cores (no TF32), 256
 // threads on 64-row tiles, each holding a 4 x 4 block of scores and a
-// 4 x d/16 block of o; every K/V tile is computed.
+// 4 x d/16 block of o; every K/V tile is computed.  Shared memory
+// 214 KB at d = 256.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <math.h>
@@ -87,20 +100,48 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------- bfloat16 and float16 (wgmma)
 
 constexpr int kTileQ = 128;     // query rows per CTA
-constexpr int kTileK = 128;     // keys per K/V tile
 constexpr int kStages = 2;      // K and V tiles in flight, each
-constexpr int kPanelCols = 64;  // bf16 columns of one 128-byte swizzle row
-constexpr int kPanelBytes = kTileK * 128;  // 128 rows of one panel
+constexpr int kPanelCols = 64;  // 16-bit columns of one 128-byte swizzle row
+constexpr int kQPanelBytes = kTileQ * 128;  // 128 q rows of one panel
 constexpr int kConsumers = 2;   // warpgroups of 64 query rows
 constexpr int kHopperThreads = (kConsumers + 1) * 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Keys per K/V tile: 128, or 64 at d = 256, where 128-key tiles would
+// need 64 KB of q and 2 stages x 64 KB each of K and V (256 KB > 227 KB).
+template <int D>
+constexpr int tile_k() {
+  return D == 256 ? 64 : 128;
+}
+
+// The two 16-bit input types: the TMA element type, and p rounded to
+// the type of v as the A fragments of p . v (the wgmma instruction names
+// the type through kF16).
+struct Bf16 {
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMap =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+
+struct F16 {
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);  // round to nearest
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+
 struct HopperArgs {
-  CUtensorMap tq;  // [n, s_q, d] bf16, box 64 x 128 x 1, 128 B swizzle
-  CUtensorMap tk;  // [n, s_k, d]
+  CUtensorMap tq;  // [n, s_q, d], box 64 x 128 x 1, 128 B swizzle
+  CUtensorMap tk;  // [n, s_k, d], box 64 x tile_k x 1
   CUtensorMap tv;  // [n, s_k, d]
   float* m;
   float* l;
@@ -117,11 +158,17 @@ struct HopperArgs {
 };
 
 // Byte offsets of the shared-memory layout (from a 1024-aligned base).
+// q, K and V are stored as panels of 64 columns, each panel its rows of
+// 128 bytes in the 128-byte swizzle.
 template <int D>
 struct Layout {
-  static constexpr int kTileBytes = (D / kPanelCols) * kPanelBytes;
+  static constexpr int kTK = tile_k<D>();
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kKPanelBytes = kTK * 128;  // kTK rows of one panel
+  static constexpr int kQBytes = kPanels * kQPanelBytes;
+  static constexpr int kTileBytes = kPanels * kKPanelBytes;  // K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kTileBytes;
+  static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBars = kV + kStages * kTileBytes;
   // full_q, then full_k, full_v, empty_k, empty_v: kStages each
@@ -221,55 +268,100 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
   "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
   "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
   "%57, %58, %59, %60, %61, %62, %63}"
+#define SR_REGS128                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "     \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "     \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "     \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "     \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "    \
+  "%127}"
 #define SR_F8(b)                                                    \
   "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),       \
       "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define SR_F32 SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24)
+#define SR_F64 SR_F32, SR_F8(32), SR_F8(40), SR_F8(48), SR_F8(56)
+#define SR_F128                                                          \
+  SR_F64, SR_F8(64), SR_F8(72), SR_F8(80), SR_F8(88), SR_F8(96),         \
+      SR_F8(104), SR_F8(112), SR_F8(120)
+// "f32.bf16.bf16" or "f32.f16.f16": the product's types for TY
+#define SR_TYPES(TY) ".f32." TY "." TY " "
 
 // d (+)= A . B, m64n128k16, A and B K-major in shared memory.
+#define SR_SS_N128(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k16" SR_TYPES(TY)   \
+                   SR_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"          \
+               : SR_F64                                                 \
+               : "l"(da), "l"(db), "r"(accumulate))
+// The same at n = 64 (the scores of a 64-key tile).
+#define SR_SS_N64(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n64k16" SR_TYPES(TY)    \
+                   SR_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"          \
+               : SR_F32                                                 \
+               : "l"(da), "l"(db), "r"(accumulate))
+// d += A . B, A (16-bit fragments) in registers, B MN-major in shared
+// memory: m64n{64,128,256}k16 (o of d = 64, 128, 256).  TAIL names the
+// operands after the N / 2 accumulators: a[0..3], then the descriptor;
+// FLAG the constant 1 that sets the scale-d predicate.
+#define SR_RS(N, TY, REGS, OUTS, TAIL, FLAG)                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " FLAG ", 0;\n"        \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16" SR_TYPES(TY) \
+                   REGS ", " TAIL ", p, 1, 1, 1;\n}\n"                   \
+               : OUTS                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),   \
+                 "r"(1))
+#define SR_RS_N64(TY) \
+  SR_RS(64, TY, SR_REGS32, SR_F32, "{%32, %33, %34, %35}, %36", "%37")
+#define SR_RS_N128(TY) \
+  SR_RS(128, TY, SR_REGS64, SR_F64, "{%64, %65, %66, %67}, %68", "%69")
+#define SR_RS_N256(TY)                                                \
+  SR_RS(256, TY, SR_REGS128, SR_F128, "{%128, %129, %130, %131}, %132", \
+        "%133")
+
+template <class E>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SR_REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24), SR_F8(32), SR_F8(40),
-        SR_F8(48), SR_F8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (E::kF16)
+    SR_SS_N128("f16");
+  else
+    SR_SS_N128("bf16");
 }
 
-// d += A . B, m64n128k16, A (bf16 fragments) in registers, B MN-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SR_REGS64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24), SR_F8(32), SR_F8(40),
-        SR_F8(48), SR_F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+template <class E>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  if constexpr (E::kF16)
+    SR_SS_N64("f16");
+  else
+    SR_SS_N64("bf16");
 }
 
-// The same at n = 64 (o of d = 64).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SR_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : SR_F8(0), SR_F8(8), SR_F8(16), SR_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+template <class E, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) {
+    if constexpr (E::kF16)
+      SR_RS_N64("f16");
+    else
+      SR_RS_N64("bf16");
+  } else if constexpr (N == 128) {
+    if constexpr (E::kF16)
+      SR_RS_N128("f16");
+    else
+      SR_RS_N128("bf16");
+  } else {
+    if constexpr (E::kF16)
+      SR_RS_N256("f16");
+    else
+      SR_RS_N256("bf16");
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -278,49 +370,50 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // S = q . k^T of this warpgroup's 64 rows against one K tile: issued and
 // committed, not waited for (after a wgmma_fence()).
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&sacc)[64], uint32_t q,
-                                             uint32_t k) {
+template <class E, int D>
+__device__ __forceinline__ void issue_scores(float (&sacc)[tile_k<D>() / 2],
+                                             uint32_t q, uint32_t k) {
+  using L = Layout<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     // 16 columns of d per step; kk / 4 picks the 64-column panel
-    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    wgmma_ss_n128(sacc, sw128_desc(q + off, 16, 1024),
-                  sw128_desc(k + off, 16, 1024), kk > 0);
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t dq = sw128_desc(q + (kk / 4) * kQPanelBytes + col, 16,
+                                   1024);
+    const uint64_t dk = sw128_desc(k + (kk / 4) * L::kKPanelBytes + col, 16,
+                                   1024);
+    if constexpr (L::kTK == 128)
+      wgmma_ss_n128<E>(sacc, dq, dk, kk > 0);
+    else
+      wgmma_ss_n64<E>(sacc, dq, dk, kk > 0);
   }
   wgmma_commit();
 }
 
 // o += p . v against one V tile: issued and committed, not waited for
 // (after a wgmma_fence()).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
-                                         const uint32_t (&pf)[kTileK / 16][4],
-                                         uint32_t v) {
+template <class E, int D>
+__device__ __forceinline__ void issue_pv(
+    float (&oacc)[D / 2], const uint32_t (&pf)[tile_k<D>() / 16][4],
+    uint32_t v) {
+  using L = Layout<D>;
 #pragma unroll
-  for (int kk = 0; kk < kTileK / 16; ++kk) {
+  for (int kk = 0; kk < L::kTK / 16; ++kk) {
     // 16 keys (rows of V) from kk * 16; panels of 64 columns apart
-    const uint64_t dv = sw128_desc(v + kk * 16 * 128, kPanelBytes, 1024);
-    if constexpr (D == 128)
-      wgmma_rs_n128(oacc, pf[kk], dv);
-    else
-      wgmma_rs_n64(oacc, pf[kk], dv);
+    const uint64_t dv = sw128_desc(v + kk * 16 * 128, L::kKPanelBytes, 1024);
+    wgmma_rs<E, D>(oacc, pf[kk], dv);
   }
   wgmma_commit();
 }
 
 // Keeps p's registers (p . v's A operand) unchanged until its wgmma is
 // waited for.
-__device__ __forceinline__ void pf_fence(uint32_t (&pf)[kTileK / 16][4]) {
+template <int KK>
+__device__ __forceinline__ void pf_fence(uint32_t (&pf)[KK][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kTileK / 16; ++kk)
+  for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e])::"memory");
 }
@@ -335,20 +428,21 @@ struct Seat {
   int delta;
 };
 
-// The online softmax over one tile of raw scores in place: the mask
+// The online softmax over one tile of TK raw scores in place: the mask
 // (NEG_INF where masked, -inf past s_k, which the max drops and p turns
 // into 0), the running max, p, the row sums into l; alpha rescales o.
-__device__ __forceinline__ void softmax_tile(float (&sacc)[64],
+template <int TK>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[TK / 2],
                                              float (&m_run)[2],
                                              float (&l_run)[2],
                                              float (&alpha)[2],
                                              const HopperArgs& a, int kbase,
                                              const Seat& at) {
-  if (kbase + kTileK > a.s_k ||
-      (a.causal && at.wrow0 - (kbase + kTileK - 1) < at.delta)) {
+  if (kbase + TK > a.s_k ||
+      (a.causal && at.wrow0 - (kbase + TK - 1) < at.delta)) {
     // the ragged last tile, or a tile reaching past the diagonal
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < TK / 2; ++i) {
       const int col = kbase + (i / 4) * 8 + 2 * at.tig + (i & 1);
       const int r = at.row + ((i >> 1) & 1) * 8;
       if (col >= a.s_k)
@@ -359,7 +453,7 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64],
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i)
+  for (int i = 0; i < TK / 2; ++i)
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -371,7 +465,7 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64],
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < TK / 2; ++i) {
     const int h = (i >> 1) & 1;
     const float p = ex2((sacc[i] - m_run[h]) * a.scale_log2);
     sacc[i] = p;
@@ -381,16 +475,17 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64],
   for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + rs[h];
 }
 
-// p, rounded to bf16, as the A fragments of p . v (16 keys each): the
-// score accumulator layout of m64n128 is the A layout of m64k16.
-__device__ __forceinline__ void p_to_bf16(const float (&sacc)[64],
-                                          uint32_t (&pf)[kTileK / 16][4]) {
+// p, rounded to E, as the A fragments of p . v (16 keys each): the score
+// accumulator layout of m64n{TK} is the A layout of m64k16.
+template <class E, int TK>
+__device__ __forceinline__ void p_to_frag(const float (&sacc)[TK / 2],
+                                          uint32_t (&pf)[TK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kTileK / 16; ++kk) {
-    pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-    pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-    pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-    pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  for (int kk = 0; kk < TK / 16; ++kk) {
+    pf[kk][0] = E::pack(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+    pf[kk][1] = E::pack(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pf[kk][2] = E::pack(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pf[kk][3] = E::pack(sacc[8 * kk + 6], sacc[8 * kk + 7]);
   }
 }
 
@@ -400,9 +495,10 @@ struct Visit {
   bool all_masked;  // every row masked throughout: no q . k^T product
 };
 
+template <int TK>
 __device__ __forceinline__ Visit plan_visit(const HopperArgs& a, int q0) {
   Visit v;
-  v.n_tiles = (a.s_k + kTileK - 1) / kTileK;
+  v.n_tiles = (a.s_k + TK - 1) / TK;
   v.all_masked = false;
   if (a.causal) {
     const int q_last = min(q0 + kTileQ, a.s_q) - 1;
@@ -411,17 +507,18 @@ __device__ __forceinline__ Visit plan_visit(const HopperArgs& a, int q0) {
     if (c_max < 0) {
       v.all_masked = true;
     } else if ((long long)a.q_offset + q0 >= a.k_offset) {
-      v.n_tiles = (int)min((long long)v.n_tiles, c_max / kTileK + 1);
+      v.n_tiles = (int)min((long long)v.n_tiles, c_max / TK + 1);
     }  // else a row masked throughout needs every tile
   }
   return v;
 }
 
-template <int D>
+template <class E, int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
-    attention_bf16(const __grid_constant__ HopperArgs a) {
+    attention_tc(const __grid_constant__ HopperArgs a) {
   using L = Layout<D>;
-  constexpr int kPanels = D / kPanelCols;
+  constexpr int kTK = L::kTK;
+  constexpr int kPanels = L::kPanels;
   extern __shared__ __align__(16) unsigned char hopper_smem[];
   const uint32_t raw = smem_u32(hopper_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -439,7 +536,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   const int n = blockIdx.x % a.n;
   const int q_tile = a.n_q_tiles - 1 - (int)(blockIdx.x / a.n);
   const int q0 = q_tile * kTileQ;
-  const Visit visit = plan_visit(a, q0);
+  const Visit visit = plan_visit<kTK>(a, q0);
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -459,10 +556,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     // ---- producer: one thread issues every TMA load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(full_q, L::kTileBytes);
+      mbar_expect_tx(full_q, L::kQBytes);
 #pragma unroll
       for (int p = 0; p < kPanels; ++p)
-        tma_load_3d(sQ + p * kPanelBytes, &a.tq, full_q, p * kPanelCols, q0,
+        tma_load_3d(sQ + p * kQPanelBytes, &a.tq, full_q, p * kPanelCols, q0,
                     n);
       for (int j = 0; j < visit.n_tiles; ++j) {
         const int s = j % kStages;
@@ -472,15 +569,15 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
           mbar_expect_tx(full_k(s), L::kTileBytes);
 #pragma unroll
           for (int p = 0; p < kPanels; ++p)
-            tma_load_3d(sK(s) + p * kPanelBytes, &a.tk, full_k(s),
-                        p * kPanelCols, j * kTileK, n);
+            tma_load_3d(sK(s) + p * L::kKPanelBytes, &a.tk, full_k(s),
+                        p * kPanelCols, j * kTK, n);
         }
         mbar_wait(empty_v(s), ph);
         mbar_expect_tx(full_v(s), L::kTileBytes);
 #pragma unroll
         for (int p = 0; p < kPanels; ++p)
-          tma_load_3d(sV(s) + p * kPanelBytes, &a.tv, full_v(s),
-                      p * kPanelCols, j * kTileK, n);
+          tma_load_3d(sV(s) + p * L::kKPanelBytes, &a.tv, full_v(s),
+                      p * kPanelCols, j * kTK, n);
       }
     }
   } else {
@@ -504,8 +601,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     float m_run[2] = {kNegInf, kNegInf};  // on the raw (unscaled) product
     float l_run[2] = {0.f, 0.f};          // this thread's columns only
     float alpha[2];
-    float sacc[64];
-    uint32_t pf[kTileK / 16][4];
+    float sacc[kTK / 2];
+    uint32_t pf[kTK / 16][4];
 
     mbar_wait(full_q, 0);
     if (visit.all_masked) {
@@ -514,16 +611,16 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       for (int j = 0; j < visit.n_tiles; ++j) {
         const int s = j % kStages;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int col = j * kTileK + (i / 4) * 8 + 2 * tig + (i & 1);
+        for (int i = 0; i < kTK / 2; ++i) {
+          const int col = j * kTK + (i / 4) * 8 + 2 * tig + (i & 1);
           sacc[i] = col < a.s_k ? 1.f : 0.f;
           l_run[(i >> 1) & 1] += sacc[i];
         }
-        p_to_bf16(sacc, pf);
+        p_to_frag<E, kTK>(sacc, pf);
         mbar_wait(full_v(s), (j / kStages) & 1);
         reg_fence(oacc);
         wgmma_fence();
-        issue_pv<D>(oacc, pf, sV(s));
+        issue_pv<E, D>(oacc, pf, sV(s));
         wgmma_wait<0>();
         reg_fence(oacc);
         pf_fence(pf);
@@ -534,12 +631,12 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       // flight; tile 0 starts the pipeline (o is 0: its alpha is unused).
       mbar_wait(full_k(0), 0);
       wgmma_fence();
-      issue_scores<D>(sacc, q_rows, sK(0));
+      issue_scores<E, D>(sacc, q_rows, sK(0));
       wgmma_wait<0>();
       reg_fence(sacc);
       if (lane == 0) mbar_arrive(empty_k(0));
-      softmax_tile(sacc, m_run, l_run, alpha, a, 0, at);
-      p_to_bf16(sacc, pf);
+      softmax_tile<kTK>(sacc, m_run, l_run, alpha, a, 0, at);
+      p_to_frag<E, kTK>(sacc, pf);
       for (int j = 1; j < visit.n_tiles; ++j) {
         const int s = j % kStages;
         const int sp = (j - 1) % kStages;
@@ -549,17 +646,17 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
         reg_fence(oacc);
         wgmma_fence();
-        issue_scores<D>(sacc, q_rows, sK(s));
-        issue_pv<D>(oacc, pf, sV(sp));
+        issue_scores<E, D>(sacc, q_rows, sK(s));
+        issue_pv<E, D>(oacc, pf, sV(sp));
         wgmma_wait<1>();  // the scores; p . v may still run
         reg_fence(sacc);
         if (lane == 0) mbar_arrive(empty_k(s));
-        softmax_tile(sacc, m_run, l_run, alpha, a, j * kTileK, at);
+        softmax_tile<kTK>(sacc, m_run, l_run, alpha, a, j * kTK, at);
         wgmma_wait<0>();
         reg_fence(oacc);
         pf_fence(pf);
         if (lane == 0) mbar_arrive(empty_v(sp));
-        p_to_bf16(sacc, pf);
+        p_to_frag<E, kTK>(sacc, pf);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
       }
@@ -568,7 +665,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_wait(full_v(sp), (last / kStages) & 1);
       reg_fence(oacc);
       wgmma_fence();
-      issue_pv<D>(oacc, pf, sV(sp));
+      issue_pv<E, D>(oacc, pf, sV(sp));
       wgmma_wait<0>();
       reg_fence(oacc);
       pf_fence(pf);
@@ -599,7 +696,18 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 
 #undef SR_REGS32
 #undef SR_REGS64
+#undef SR_REGS128
 #undef SR_F8
+#undef SR_F32
+#undef SR_F64
+#undef SR_F128
+#undef SR_TYPES
+#undef SR_SS_N128
+#undef SR_SS_N64
+#undef SR_RS
+#undef SR_RS_N64
+#undef SR_RS_N128
+#undef SR_RS_N256
 
 // --------------------------------------------------------------- float32
 
@@ -791,32 +899,35 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [n, rows, d] bf16 as a 3-D map, boxes of 64 columns x 128 rows x 1
-// with 128-byte swizzle; rows past `rows` of a batch read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int n, int rows, int d) {
+// [n, rows, d] of 16-bit E as a 3-D map, boxes of 64 columns x
+// `box_rows` rows x 1 with 128-byte swizzle; rows past `rows` of a batch
+// read as zeros.
+template <class E>
+bool make_map(CUtensorMap* map, const void* ptr, int n, int rows, int d,
+              int box_rows) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {kPanelCols, kTileK, 1};
+  const cuuint32_t box[3] = {kPanelCols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return enc(map, E::kMap, 3, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        float* m, float* l, float* o, int n, int s_q,
-                        int s_k, int q_offset, int k_offset, int causal,
-                        float scale, cudaStream_t st) {
+template <class E, int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, float* m,
+                      float* l, float* o, int n, int s_q, int s_k,
+                      int q_offset, int k_offset, int causal, float scale,
+                      cudaStream_t st) {
   HopperArgs a;
-  if (!make_map(&a.tq, q, n, s_q, D) || !make_map(&a.tk, k, n, s_k, D) ||
-      !make_map(&a.tv, v, n, s_k, D))
+  if (!make_map<E>(&a.tq, q, n, s_q, D, kTileQ) ||
+      !make_map<E>(&a.tk, k, n, s_k, D, tile_k<D>()) ||
+      !make_map<E>(&a.tv, v, n, s_k, D, tile_k<D>()))
     return cudaErrorInvalidValue;
   a.m = m;
   a.l = l;
@@ -834,10 +945,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int smem = Layout<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attention_tc<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  attention_bf16<D><<<(unsigned)blocks, kHopperThreads, smem, st>>>(a);
+  attention_tc<E, D><<<(unsigned)blocks, kHopperThreads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The tensor-core kernel at a compiled head size.
+template <class E>
+cudaError_t launch_tc_d(int d, const void* q, const void* k, const void* v,
+                        float* m, float* l, float* o, int n, int s_q,
+                        int s_k, int q_offset, int k_offset, int causal,
+                        float scale, cudaStream_t st) {
+  if (d == 64)
+    return launch_tc<E, 64>(q, k, v, m, l, o, n, s_q, s_k, q_offset,
+                            k_offset, causal, scale, st);
+  if (d == 128)
+    return launch_tc<E, 128>(q, k, v, m, l, o, n, s_q, s_k, q_offset,
+                             k_offset, causal, scale, st);
+  if (d == 256)
+    return launch_tc<E, 256>(q, k, v, m, l, o, n, s_q, s_k, q_offset,
+                             k_offset, causal, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -855,9 +984,10 @@ cudaError_t launch_f32(const Args& a, unsigned blocks, cudaStream_t st) {
 
 // Partials of q [n, s_q, d] against k, v [n, s_k, d] (contiguous, rows
 // 16-byte aligned) into m, l [n, s_q] and o [n, s_q, d] (float32).
-// dtype 0 = float32, 1 = bfloat16; d is 64 or 128.  Returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue when a tensor
-// map cannot be built); queued on `stream`, not synchronised.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16; d is 64, 128 or 256 (the
+// wrapper pads other head sizes).  Returns cudaGetLastError() (0 on
+// success; cudaErrorInvalidValue for another dtype or d, or when a
+// tensor map cannot be built); queued on `stream`, not synchronised.
 extern "C" int sr_block_attention(const void* q, const void* k,
                                   const void* v, void* m, void* l, void* o,
                                   int n, int s_q, int s_k, int d,
@@ -868,12 +998,13 @@ extern "C" int sr_block_attention(const void* q, const void* k,
   float* fm = static_cast<float*>(m);
   float* fl = static_cast<float*>(l);
   float* fo = static_cast<float*>(o);
-  if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, fm, fl, fo, n, s_q, s_k, q_offset,
-                           k_offset, causal, scale, st);
-  if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, fm, fl, fo, n, s_q, s_k, q_offset,
+  if (dtype == 1)
+    return launch_tc_d<Bf16>(d, q, k, v, fm, fl, fo, n, s_q, s_k, q_offset,
+                             k_offset, causal, scale, st);
+  if (dtype == 2)
+    return launch_tc_d<F16>(d, q, k, v, fm, fl, fo, n, s_q, s_k, q_offset,
                             k_offset, causal, scale, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -890,7 +1021,8 @@ extern "C" int sr_block_attention(const void* q, const void* k,
   a.scale = scale;
   const long long blocks = (long long)a.n_q_tiles * n;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64) return launch_f32<64>(a, (unsigned)blocks, st);
-  if (dtype == 0 && d == 128) return launch_f32<128>(a, (unsigned)blocks, st);
+  if (d == 64) return launch_f32<64>(a, (unsigned)blocks, st);
+  if (d == 128) return launch_f32<128>(a, (unsigned)blocks, st);
+  if (d == 256) return launch_f32<256>(a, (unsigned)blocks, st);
   return cudaErrorInvalidValue;
 }

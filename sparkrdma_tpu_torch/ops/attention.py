@@ -20,9 +20,14 @@ inf - inf = NaN there.
 On a CUDA tensor :func:`block_attention` launches the hand-written
 kernel of ``csrc/block_attention.cu`` (or raises); on a CPU tensor it
 runs :func:`block_attention_plain`, which is also what the kernel is
-held against on the card.  Both follow the Pallas kernel's arithmetic:
-the scale multiplies the float32 product, and ``p`` is cast to v's
-dtype before the ``p @ v`` product, accumulated in float32.
+held against on the card.  The kernel takes float32, bfloat16 and
+float16 and is compiled at the head sizes :data:`D_HEADS`; any other
+``d_head`` up to the largest of them runs the kernel at the next
+compiled size on zero-padded q, k and v (:func:`pad_head_dim`), which
+is exact.  A larger ``d_head`` raises ``NotImplementedError``.  Both
+follow the Pallas kernel's arithmetic: the scale multiplies the float32
+product, and ``p`` is cast to v's dtype before the ``p @ v`` product,
+accumulated in float32.
 """
 
 from __future__ import annotations
@@ -35,11 +40,12 @@ import torch
 from sparkrdma_tpu_torch import _build
 
 NEG_INF = -1e30
-BLOCK_Q = 128   # query rows per CUDA block (bfloat16 kernel)
-BLOCK_K = 128   # keys per step of its loop over the K/V block
-D_HEADS = (64, 128)
-KERNEL_ITEM = "ROADMAP.md, 'Next, in order', item 1: kernel 3's other d_head"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_Q = 128   # query rows per CUDA block (16-bit kernel)
+BLOCK_K = 128   # keys per step of its loop over the K/V block (64 at d 256)
+D_HEADS = (64, 128, 256)  # the head sizes the kernel is compiled at
+KERNEL_ITEM = ("ROADMAP.md, 'Next, in order', item 3: kernel 3 at "
+               "d_head > 256")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 LAUNCHES = _build.LaunchCounter("block_attention")
 
@@ -86,15 +92,38 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _attention_cuda(q, k, v, q_offset, k_offset, causal, scale) -> Partials:
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the kernel takes {sorted(map(str, _DTYPE_CODE))}, "
-                         f"got {q.dtype}")
+def kernel_d_head(d: int) -> int:
+    """The compiled head size that runs ``d``: the smallest of
+    :data:`D_HEADS` at or above it.  Past the largest, raises
+    ``NotImplementedError``."""
+    for c in D_HEADS:
+        if d <= c:
+            return c
+    raise NotImplementedError(
+        f"d_head={d}: the kernel takes d_head up to {D_HEADS[-1]} "
+        f"({KERNEL_ITEM})")
+
+
+def pad_head_dim(inner, q, k, v, q_offset, k_offset, causal,
+                 scale: float) -> Partials:
+    """``inner(q, k, v, q_offset, k_offset, causal, scale)`` at the
+    compiled head size :func:`kernel_d_head` of q's ``d``: q, k and v
+    zero-padded in the last dimension, ``o`` cut back to ``d``.  Exact:
+    zero columns of q and k add 0 to every score, and zero columns of v
+    give only the ``o`` columns that are cut off.  ``scale`` is the
+    caller's, of the unpadded ``d``."""
     d = q.shape[-1]
-    if d not in D_HEADS:
-        raise NotImplementedError(
-            f"d_head={d}: the kernel takes d_head in {D_HEADS} "
-            f"({KERNEL_ITEM})")
+    width = kernel_d_head(d)
+    if width == d:
+        return inner(q, k, v, q_offset, k_offset, causal, scale)
+    q, k, v = (torch.nn.functional.pad(x, (0, width - d)) for x in (q, k, v))
+    m, l, o = inner(q, k, v, q_offset, k_offset, causal, scale)
+    return m, l, o[..., :d].contiguous()
+
+
+def _attention_cuda(q, k, v, q_offset, k_offset, causal, scale) -> Partials:
+    """One launch of the kernel at a compiled head size."""
+    d = q.shape[-1]
     q3, k3, v3 = (_rows16(x.reshape(-1, x.shape[-2], d)) for x in (q, k, v))
     n, s_q, s_k = q3.shape[0], q3.shape[1], k3.shape[1]
     m = torch.empty((n, s_q), dtype=torch.float32, device=q.device)
@@ -141,8 +170,11 @@ def block_attention(
     (BLOCK_Q, BLOCK_K) tile and the plain version takes no tile, as the
     JAX ``xla`` path does (a tile changes no result beyond the order of
     summation).  A non-positive size raises ``ValueError``.  CUDA
-    tensors (bfloat16 or float32, d 64 or 128) run the kernel; CPU
-    tensors run :func:`block_attention_plain`.
+    tensors (float32, bfloat16 or float16, any d_head up to 256) run the
+    kernel, at a padded head size where d_head is not one of
+    :data:`D_HEADS` (:func:`pad_head_dim`); CPU tensors run
+    :func:`block_attention_plain`.  Another dtype on CUDA raises
+    ``ValueError``, and d_head > 256 ``NotImplementedError``.
     """
     _check(q, k, v)
     if block_q < 1 or block_k < 1:
@@ -150,8 +182,11 @@ def block_attention(
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cuda":
-        return _attention_cuda(q, k, v, q_offset, k_offset, causal,
-                               float(scale))
+        if q.dtype not in _DTYPE_CODE:
+            raise ValueError(f"the kernel takes "
+                             f"{sorted(map(str, _DTYPE_CODE))}, got {q.dtype}")
+        return pad_head_dim(_attention_cuda, q, k, v, q_offset, k_offset,
+                            causal, float(scale))
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return block_attention_plain(q, k, v, q_offset, k_offset, causal,

@@ -126,3 +126,12 @@ def step_group(n_devices: int, group, what: str) -> Optional[ExchangeGroup]:
         raise ValueError(
             f"{what} made for {n_devices} devices got a group of {g.size}")
     return None if n_devices == 1 else g
+
+
+def world_group(device: DeviceLike = None) -> ExchangeGroup:
+    """The initialised ``torch.distributed`` world as an exchange group
+    on ``device`` (its ranks are the D of a job launched one process per
+    GPU), or a world of one when no process group is initialised."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return ExchangeGroup(device=device)
+    return ExchangeGroup(dist.group.WORLD, device=device)

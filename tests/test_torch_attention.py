@@ -9,11 +9,17 @@ batch goes through ``jax.vmap``, as the JAX ring does.
 
 Tolerances, as tests/test_attention_kernel.py holds Pallas against xla:
 m and l rtol 1e-5, o rtol and atol 1e-4 (float32 sums in other orders).
-bfloat16 is held against the Pallas path only, because JAX's xla path
-does not round ``p`` to bfloat16 before ``p @ v``; Pallas runs with one
-K block over all of s_k, so both round ``p`` against the same row max,
-and o keeps rtol and atol 1e-4 relative to its scale (bf16 inputs are
-exact in float32; only summation order differs).
+In bfloat16 and float16, Pallas runs with one K block over all of s_k,
+so both round ``p`` against the same row max, and o keeps rtol and atol
+1e-4 relative to its scale (16-bit inputs are exact in float32; only
+summation order differs).  That holds for the small cases of the older
+tests; in general a term's ``p`` rounds to v's dtype on either side of
+a rounding boundary when the two compute it in other orders, and JAX's
+xla path does not round ``p`` at all.  So the head-size tests hold a
+16-bit o within one step of that rounding per term, ``ulp * (p @ |v|)``
+elementwise on top of the float32 tolerance, with ``ulp`` = 2^-7 for
+bfloat16 and 2^-10 for float16 (relative) and ``p @ |v|`` from the
+plain version on ``|v|``.
 """
 
 import importlib
@@ -45,8 +51,9 @@ def _qkv(n, s_q, s_k, d, seed, dtype=np.float32):
 
 def _jax(q, k, v, impl, jdtype=jnp.float32, **kw):
     # float32 runs Pallas over several K blocks (its online rescaling);
-    # bfloat16 over one, so that p is rounded against the full row max
-    block_k = k.shape[-2] if jdtype == jnp.bfloat16 else 32
+    # bfloat16 and float16 over one, so that p is rounded against the
+    # full row max
+    block_k = 32 if jdtype == jnp.float32 else k.shape[-2]
     blocks = dict(block_q=32, block_k=block_k) if impl == "pallas" else {}
 
     def one(qq, kk, vv):
@@ -62,12 +69,19 @@ def _port(q, k, v, dtype=torch.float32, **kw):
         *(torch.from_numpy(x).to(dtype) for x in (q, k, v)), **kw)
 
 
-def _close(got, want):
+def _close(got, want, p_rounding=None):
+    """``p_rounding``: ``ulp * (p @ |v|)``, o's room for p rounded
+    otherwise (module docstring)."""
     m, l, o = (x.numpy() for x in got)
     assert all(x.dtype == np.float32 for x in (m, l, o))
     np.testing.assert_allclose(m, want[0], **M_TOL)
     np.testing.assert_allclose(l, want[1], **M_TOL)
-    np.testing.assert_allclose(o, want[2], **O_TOL)
+    if p_rounding is None:
+        np.testing.assert_allclose(o, want[2], **O_TOL)
+    else:
+        lim = O_TOL["atol"] + O_TOL["rtol"] * np.abs(want[2]) + p_rounding
+        assert (np.abs(o - want[2]) <= lim).all(), \
+            float(np.abs(o - want[2]).max())
 
 
 CASES = {
@@ -269,3 +283,84 @@ def test_straddling_tiles_match_jax(name, impl):
     want = tuple(np.asarray(x) for x in jattn.block_attention(
         *(jnp.asarray(x) for x in (q, k, v)), impl=impl, **blocks, **kw))
     _close(_port(q, k, v, **kw), want)
+
+
+# -- every head size to 256, in float32, bfloat16 and float16 ----------------
+
+HEAD_DIMS = [32, 80, 96, 256]
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16),
+          "float16": (torch.float16, jnp.float16)}
+P_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# name: (s_q, s_k, q_offset, k_offset, causal)
+HEAD_CASES = {
+    "ragged": (48, 80, 32, 0, False),
+    "ragged_causal": (48, 80, 32, 0, True),
+    "straddle": (160, 288, 100, 0, True),   # a 128-row q tile straddles
+    "k_ahead_70": (160, 288, 0, 70, True),  # rows 0..69 see no key
+    "masked": (64, 96, 0, 64, True),        # every row sees no key
+}
+
+
+def _p_rounding(q, k, v, dt, **kw):
+    """``ulp * (p @ |v|)`` of the plain version: o's room for p rounded
+    otherwise, or not at all (module docstring)."""
+    tdt = DTYPES[dt][0]
+    _m, _l, pv = tattn.block_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, np.abs(v))), **kw)
+    return P_ULP[dt] * pv.numpy()
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("case", sorted(HEAD_CASES))
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_every_head_size_and_dtype_matches_jax(d, dt, case, impl):
+    """d 32, 80, 96 and 256 (the kernel runs 32 and 80 at 64 or 128, 96
+    at 128, padded, and 256 natively) in the three dtypes the JAX
+    function takes, causal and not, with q tiles straddling the
+    diagonal and rows masked partly and throughout."""
+    s_q, s_k, qo, ko, causal = HEAD_CASES[case]
+    q, k, v = _qkv(None, s_q, s_k, d, seed=d + len(case) + len(dt))
+    kw = dict(q_offset=qo, k_offset=ko, causal=causal)
+    tdt, jdt = DTYPES[dt]
+    got = _port(q, k, v, dtype=tdt, **kw)
+    if case == "masked":
+        assert bool((got[0] == tattn.NEG_INF).all())
+        assert bool((got[1] == s_k).all())
+    rounding = None if dt == "float32" else _p_rounding(q, k, v, dt, **kw)
+    _close(got, _jax(q, k, v, impl, jdtype=jdt, **kw), rounding)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_padding_path_equals_the_unpadded_plain_version(dt):
+    """The wrapper's padding (what a CUDA tensor at d 80 runs, here with
+    the plain version inside): q, k, v padded to 128 columns and o cut
+    back equal the plain version at d 80 exactly, since zero columns add
+    exact zeros."""
+    q, k, v = (torch.from_numpy(x).to(DTYPES[dt][0])
+               for x in _qkv(2, 70, 150, 80, seed=41))
+    scale = 1 / np.sqrt(80)
+    for qo, ko, causal in ((0, 0, False), (30, 0, True), (0, 100, True)):
+        seen = []
+
+        def inner(*args):
+            seen.append(args[0].shape[-1])
+            return tattn.block_attention_plain(*args)
+
+        got = tattn.pad_head_dim(inner, q, k, v, qo, ko, causal, scale)
+        want = tattn.block_attention_plain(q, k, v, qo, ko, causal, scale)
+        assert seen == [128]
+        assert got[2].shape == (2, 70, 80)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_kernel_head_sizes():
+    """Each d_head up to 256 runs at the smallest compiled size at or
+    above it; past 256 the kernel refuses, naming the ROADMAP item."""
+    assert [tattn.kernel_d_head(d) for d in (1, 32, 64, 65, 96, 128, 129,
+                                             200, 256)] == \
+        [64, 64, 64, 128, 128, 128, 256, 256, 256]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
+        tattn.kernel_d_head(257)

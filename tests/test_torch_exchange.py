@@ -46,6 +46,7 @@ from jax.sharding import PartitionSpec as P
 import torch_exchange_worker as worker
 from sparkrdma_tpu.models import TeraSorter as JTeraSorter
 from sparkrdma_tpu.models import WordCounter as JWordCounter
+from sparkrdma_tpu.models import external_sort as jext
 from sparkrdma_tpu.models import join as jjoin
 from sparkrdma_tpu.models import join_aggregate as jja
 from sparkrdma_tpu.models import topk as jtopk
@@ -472,7 +473,75 @@ def test_join_aggregate_matches_jax_on_every_rank(world, D, name):
 
 
 @pytest.mark.parametrize("D", WORLDS)
-def test_external_sort_refuses_a_group(world, D):
+def test_external_sort_refuses_mixed_dtypes_on_every_rank(world, D):
+    """A group whose ranks feed different dtypes: every rank refuses at
+    the splitter gather (none waits in a later collective)."""
     for r in world(D):
-        assert "ROADMAP.md" in r["external_sort_error"]
-        assert "item 3" in r["external_sort_error"]
+        assert "different (key, value) dtypes" in r["external_sort_error"]
+        assert "int64" in r["external_sort_error"]
+
+
+def _ext(world, D, name):
+    return [r["ext"][name] for r in world(D)]
+
+
+@pytest.mark.parametrize("D", WORLDS)
+@pytest.mark.parametrize("name", sorted(worker.EXT_CASES))
+def test_external_sort_matches_jax(world, D, name, tmp_path):
+    """tests/test_models.py:316-400 over D ranks, each feeding its own
+    chunk stream (``random``: 2 + r chunks on rank r; ``zero_chunks``:
+    none on rank 0; ``single``: one record on rank 0 and no chunk
+    elsewhere), against the JAX ``ExternalTeraSorter`` on
+    ``make_mesh(D)`` fed chunk i = the concatenation over ranks of their
+    chunk i.  Every rank yields one run per non-empty bucket; the runs
+    concatenated over buckets, and within a bucket over ranks, are the
+    JAX sort: keys bit for bit, values within equal keys.  The bucket
+    statistics are the same on every rank, and the spill files are
+    gone."""
+    ranks = _ext(world, D, name)
+    kw = worker.EXT_CASES[name]
+    chunks = worker.ext_global_chunks(name, D)
+    js = jext.ExternalTeraSorter(make_mesh(D), spill_dir=str(tmp_path), **kw)
+    wouts = list(js.sort_chunks(iter(chunks)))
+    assert len({len(r["outs"]) for r in ranks}) == 1
+    runs = [r["outs"][b] for b in range(len(ranks[0]["outs"]))
+            for r in ranks]
+    if not wouts:
+        assert not runs
+        return
+    gk, gv = _concat_runs(runs)
+    wk, wv = (np.concatenate([np.asarray(x[j]) for x in wouts])
+              for j in (0, 1))
+    assert gk.dtype == wk.dtype and gv.dtype == wv.dtype
+    np.testing.assert_array_equal(gk, wk)
+    _assert_same_rows([gk, gv], [wk, wv])
+    np.testing.assert_array_equal(
+        gk, np.sort(np.concatenate([k for k, _ in chunks])))
+    stats = {r["stats"][2:] for r in ranks}
+    assert len(stats) == 1
+    max_bucket, resplit = stats.pop()
+    assert sum(r["stats"][0] for r in ranks) == sum(
+        len(worker.ext_chunks(name, d, D)) for d in range(D))
+    assert all(not r["left"] for r in ranks)
+    if name == "sorted_resplit":
+        assert resplit >= 1 and js.buckets_resplit >= 1
+        assert max_bucket <= 2000
+    if name == "balanced":
+        assert resplit == 0 == js.buckets_resplit
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_external_sort_sort_owns_a_range(world, D):
+    """``sort`` of this rank's shard returns what this rank owns: its
+    range of each bucket, concatenated, so sorted; the ranks' rows
+    together are the JAX sort's."""
+    keys, vals = worker.host_inputs("ts_uniform")
+    keys, vals = keys[:20_000], vals[:20_000]
+    wk, wv = jext.ExternalTeraSorter(make_mesh(D), num_buckets=8).sort(
+        keys, vals)
+    got = [r["ext"]["sort"] for r in world(D)]
+    gk, gv = _concat_runs(got)
+    np.testing.assert_array_equal(np.sort(gk), np.asarray(wk))
+    _assert_same_rows([gk, gv], [np.asarray(wk), np.asarray(wv)])
+    for k, _v in got:
+        assert (np.diff(k) >= 0).all()

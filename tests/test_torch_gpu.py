@@ -336,22 +336,30 @@ def test_kernels_count_their_launches(cuda_device):
     }
 
 
+O_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7,
+         torch.float16: 2.0 ** -10}
+HALF = [torch.bfloat16, torch.float16]
+# the compiled head sizes, and sizes the wrapper pads to them
+D_HEADS = [32, 64, 80, 96, 128, 256]
+
+
 def _close_partials(got, want, dtype):
     """m: float32 dot products summed in another order, atol and rtol
     1e-5, and rows masked throughout exactly NEG_INF.  l: rtol 1e-4 (the
     kernel's fast exponential and its order of summation).  o: within
     1e-4 of its largest magnitude in float32; in bfloat16 within 2^-7 of
     it, because the kernel rounds p to bfloat16 against the running max
-    of each 128-key tile and the plain version against the row max (one
-    bfloat16 rounding, 2^-9 relative, per term of the sum)."""
+    of each K tile and the plain version against the row max (one
+    bfloat16 rounding, 2^-9 relative, per term of the sum); in float16
+    within 2^-10 of it (one float16 rounding, 2^-11 relative, per
+    term)."""
     (m, l, o), (wm, wl, wo) = got, want
     masked = wm == tattn.NEG_INF
     assert torch.equal(m[masked], wm[masked])
     torch.testing.assert_close(m[~masked], wm[~masked], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(l, wl, rtol=1e-4, atol=0)
     scale = float(wo.abs().max())
-    o_tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-    assert float((o - wo).abs().max()) <= o_tol * scale
+    assert float((o - wo).abs().max()) <= O_TOL[dtype] * scale
 
 
 def _qkv_cuda(n, s_q, s_k, d, dtype, device, seed):
@@ -364,8 +372,8 @@ def _qkv_cuda(n, s_q, s_k, d, dtype, device, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", D_HEADS)
+@pytest.mark.parametrize("dtype", HALF + [torch.float32])
 def test_attention_kernel_matches_plain_on_card(cuda_device, dtype, d,
                                                 causal):
     torch.backends.cuda.matmul.allow_tf32 = False  # plain in full f32
@@ -380,11 +388,12 @@ def test_attention_kernel_matches_plain_on_card(cuda_device, dtype, d,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attention_kernel_masked_rows_on_card(cuda_device, dtype):
+@pytest.mark.parametrize("d", [128, 96, 256])
+@pytest.mark.parametrize("dtype", HALF + [torch.float32])
+def test_attention_kernel_masked_rows_on_card(cuda_device, dtype, d):
     torch.backends.cuda.matmul.allow_tf32 = False
     s_q, s_k = 100, 150
-    q, k, v = _qkv_cuda(3, s_q, s_k, 128, dtype, cuda_device, 7)
+    q, k, v = _qkv_cuda(3, s_q, s_k, d, dtype, cuda_device, 7)
     m, l, o = tattn.block_attention(q, k, v, 0, s_q, True)  # all masked
     assert bool((m == tattn.NEG_INF).all()) and bool((l == s_k).all())
     torch.testing.assert_close(
@@ -393,11 +402,11 @@ def test_attention_kernel_masked_rows_on_card(cuda_device, dtype):
     for qo, ko in ((0, 70), (130, 130)):  # rows partly / fully masked
         got = tattn.block_attention(q, k, v, qo, ko, True)
         want = tattn.block_attention_plain(q, k, v, qo, ko, True,
-                                           1.0 / 128 ** 0.5)
+                                           1.0 / d ** 0.5)
         _close_partials(got, want, dtype)
 
 
-# bf16, causal: (n, s_q, s_k, q_offset, k_offset)
+# 16-bit, causal: (n, s_q, s_k, q_offset, k_offset)
 EDGE_CASES = [
     (1, 300, 500, 200, 0),     # 128-row q tiles straddle the diagonal
     (33, 130, 257, 0, 0),      # many heads; s_q, s_k not multiples of 128
@@ -409,16 +418,16 @@ EDGE_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("case", EDGE_CASES)
-def test_attention_kernel_edges_on_card(cuda_device, case, d):
+def test_attention_kernel_edges_on_card(cuda_device, case, dtype, d):
     torch.backends.cuda.matmul.allow_tf32 = False
     n, s_q, s_k, qo, ko = case
-    q, k, v = _qkv_cuda(n, s_q, s_k, d, torch.bfloat16, cuda_device,
-                        s_q + s_k + d)
+    q, k, v = _qkv_cuda(n, s_q, s_k, d, dtype, cuda_device, s_q + s_k + d)
     got = tattn.block_attention(q, k, v, qo, ko, True)
     want = tattn.block_attention_plain(q, k, v, qo, ko, True, 1.0 / d ** 0.5)
-    _close_partials(got, want, torch.bfloat16)
+    _close_partials(got, want, dtype)
     dead = (qo + torch.arange(s_q, device=cuda_device)) < ko
     assert bool((got[0][:, dead] == tattn.NEG_INF).all())
     assert bool((got[1][:, dead] == s_k).all())
@@ -426,6 +435,25 @@ def test_attention_kernel_edges_on_card(cuda_device, case, d):
 
 @pytest.mark.gpu
 def test_attention_kernel_refuses_other_d_head_on_card(cuda_device):
-    x = torch.zeros(64, 96, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.block_attention(x, x, x)
+    """Every d_head up to 256 runs (padded where it is not compiled);
+    past 256 the kernel refuses, naming the ROADMAP item."""
+    for dtype in HALF + [torch.float32]:
+        x = torch.zeros(64, 257, dtype=dtype, device=cuda_device)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tattn.block_attention(x, x, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 33, 200])
+def test_attention_kernel_pads_to_a_compiled_d_head_on_card(cuda_device,
+                                                            d):
+    """A head size the kernel is not compiled at launches the kernel once
+    at the next compiled size, and o comes back at d columns."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv_cuda(2, 130, 200, d, torch.float16, cuda_device, d)
+    _build.reset_launch_counts()
+    got = tattn.block_attention(q, k, v, 0, 0, True)
+    assert _build.launch_counts()["block_attention"] == 1
+    assert got[2].shape == (2, 130, d)
+    want = tattn.block_attention_plain(q, k, v, 0, 0, True, 1.0 / d ** 0.5)
+    _close_partials(got, want, torch.float16)

@@ -806,9 +806,13 @@ def test_step_makers_refuse_more_than_one_device(maker):
     assert callable(STEP_MAKERS[maker](2, _TwoRanks()))
 
 
-def test_external_sort_refuses_more_than_one_rank():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        text.ExternalTeraSorter(CPU, group=_TwoRanks())
+def test_external_sort_builds_over_two_ranks():
+    """Over a group of two ranks it sorts each chunk on its own device and
+    each bucket over the group (the worlds of tests/test_torch_exchange.py
+    run it)."""
+    ext = text.ExternalTeraSorter(CPU, group=_TwoRanks())
+    assert ext.sorter.n_devices == 2 and ext.chunk_sorter.n_devices == 1
+    assert ext.chunk_sorter.device == ext.device == torch.device(CPU)
 
 
 def test_sql_entry_points_raise_without_cuda(monkeypatch):

@@ -3,12 +3,12 @@
     python tests/torch_exchange_worker.py RANK WORLD STORE_FILE OUT_DIR
 
 Joins a ``world``-rank gloo group over a ``file://`` store (no TCP
-port), runs every case of :data:`STEP_CASES` and :data:`HOST_CASES` on
-this rank's shard through ``sparkrdma_tpu_torch``, and pickles the
-results to ``OUT_DIR/rank<RANK>.pkl``.  Imports torch, numpy and
-``sparkrdma_tpu_torch`` only: neither JAX nor the tests' conftest.  The
-test module imports it for the input builders, so both sides build the
-same inputs from the same seeds.
+port), runs every step, host and external-sort case (:data:`EXT_CASES`)
+on this rank's shard or chunk stream through ``sparkrdma_tpu_torch``,
+and pickles the results to ``OUT_DIR/rank<RANK>.pkl``.  Imports torch,
+numpy and ``sparkrdma_tpu_torch`` only: neither JAX nor the tests'
+conftest.  The test module imports it for the input builders, so both
+sides build the same inputs from the same seeds.
 
 Step cases take the JAX package's shards: rank d gets rows ``[d *
 n_local, (d + 1) * n_local)`` of the global columns, which is what
@@ -274,6 +274,93 @@ def ja_xor(ku, fact_pay_u, dim_val_u):
     return (fact_pay_u ^ dim_val_u).to(torch.int32)
 
 
+# -- external sort: each rank feeds its own chunk stream ---------------------
+
+
+def _rank_parts(chunks, rank, world):
+    """Rank ``rank``'s part of each global chunk (``np.array_split``)."""
+    return [tuple(np.array_split(x, world)[rank] for x in c) for c in chunks]
+
+
+def ext_chunks(name, rank, world):
+    """Rank ``rank``'s chunk stream of an external-sort case, a list of
+    (keys, vals); the JAX package's chunk i is the concatenation over
+    ranks of their chunk i (:func:`ext_global_chunks`)."""
+    rng = _rng(200 + sum(map(ord, name)) + 7 * rank)
+    if name == "random":  # rank r holds 2 + r chunks of ragged sizes
+        return [(rng.integers(0, 1 << 30, n).astype(np.int32),
+                 rng.integers(0, 1 << 30, n).astype(np.int32))
+                for n in rng.integers(200, 1500, 2 + rank)]
+    if name == "zero_chunks":  # rank 0 none, rank r > 0 r chunks
+        out = [(rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32),
+                rng.integers(0, 1 << 30, n).astype(np.int32))
+               for n in rng.integers(100, 900, rank)]
+        if rank == world - 1:  # an empty chunk first
+            out.insert(0, (np.zeros(0, np.int32), np.zeros(0, np.int32)))
+        return out
+    if name == "sorted_resplit":  # test_models.py:344, split by rank
+        keys = np.arange(16000, dtype=np.int32)
+        vals = keys[::-1].copy()
+        return _rank_parts([(keys[i:i + 2000], vals[i:i + 2000])
+                            for i in range(0, 16000, 2000)], rank, world)
+    if name == "balanced":  # test_models.py:372
+        ks = _rng(51).integers(0, 1 << 30, (16, 1000)).astype(np.int32)
+        return _rank_parts([(k, k.copy()) for k in ks], rank, world)
+    if name == "duplicate_heavy":  # test_models.py:386
+        keys = np.concatenate([np.arange(2000, dtype=np.int32),
+                               np.full(14000, 7_000_000, np.int32)])
+        vals = np.arange(len(keys), dtype=np.int32)
+        return _rank_parts([(keys[i:i + 2000], vals[i:i + 2000])
+                            for i in range(0, 16000, 2000)], rank, world)
+    if name == "empty":
+        return [(np.zeros(0, np.int32), np.zeros(0, np.int32))]
+    if name == "single":  # one record on rank 0, no chunk elsewhere
+        return [(np.array([5], np.int32), np.array([7], np.int32))] \
+            if rank == 0 else []
+    raise KeyError(name)
+
+
+def ext_global_chunks(name, world):
+    """The JAX package's chunk stream: chunk i is the concatenation over
+    ranks of each rank's chunk i, where it has one."""
+    streams = [ext_chunks(name, r, world) for r in range(world)]
+    return [tuple(np.concatenate([s[i][j] for s in streams if i < len(s)])
+                  for j in (0, 1))
+            for i in range(max(map(len, streams)))]
+
+
+# name: ExternalTeraSorter arguments (tests/test_models.py:316-400)
+EXT_CASES = {
+    "random": dict(num_buckets=8, sample_per_chunk=256),
+    "zero_chunks": dict(num_buckets=8, sample_per_chunk=256),
+    "sorted_resplit": dict(num_buckets=8, sample_per_chunk=256),
+    "balanced": dict(num_buckets=4, sample_per_chunk=512),
+    "duplicate_heavy": dict(num_buckets=8, sample_per_chunk=128),
+    "empty": dict(num_buckets=4),
+    "single": dict(num_buckets=4),
+}
+
+
+def run_external_sort_cases(rank, world, group, out_dir):
+    from sparkrdma_tpu_torch import ExternalTeraSorter
+
+    out = {}
+    for name, kw in EXT_CASES.items():
+        spill = os.path.join(out_dir, f"spill_{name}_{rank}")
+        os.makedirs(spill)
+        ext = ExternalTeraSorter(device="cpu", group=group, spill_dir=spill,
+                                 **kw)
+        outs = list(ext.sort_chunks(iter(ext_chunks(name, rank, world))))
+        out[name] = dict(outs=outs, left=os.listdir(spill), stats=(
+            ext.chunks_in, ext.bytes_spilled, ext.max_bucket_records,
+            ext.buckets_resplit))
+    keys, vals = host_inputs("ts_uniform")
+    out["sort"] = ExternalTeraSorter(device="cpu", group=group,
+                                     num_buckets=8).sort(
+        shard(keys[:20_000], rank, world), shard(vals[:20_000], rank, world))
+    return out
+
+
 # -- the cases on this rank --------------------------------------------------
 
 
@@ -398,13 +485,18 @@ def run_host_cases(rank, world, group):
     return out
 
 
-def run_refusals(group):
+def run_refusals(rank, group):
+    """Ranks that feed the external sort different dtypes (int32 keys on
+    even ranks, int64 on odd) all refuse at the splitter gather."""
     from sparkrdma_tpu_torch import ExternalTeraSorter
 
+    dt = np.int64 if rank % 2 else np.int32
+    keys = np.arange(10, dtype=dt)
     try:
-        ExternalTeraSorter(device="cpu", group=group)
+        list(ExternalTeraSorter(device="cpu", group=group,
+                                num_buckets=4).sort_chunks([(keys, keys)]))
         return ""
-    except NotImplementedError as e:
+    except ValueError as e:
         return str(e)
 
 
@@ -420,7 +512,8 @@ def run_rank(rank, world, store, out_dir):
         group = ExchangeGroup(dist.group.WORLD, device="cpu")
         out = {"steps": run_step_cases(rank, world, group),
                "host": run_host_cases(rank, world, group),
-               "external_sort_error": run_refusals(group)}
+               "ext": run_external_sort_cases(rank, world, group, out_dir),
+               "external_sort_error": run_refusals(rank, group)}
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
