@@ -19,11 +19,14 @@ and reduction), and causal sequence-parallel attention through
 x 8192 and x 32768, d_head 128, bfloat16), checks every result against
 an independent torch oracle, and shows through the launch counters
 that the main paths ran the kernels.  Kernel 3 is also held against
-its plain version in float32, bfloat16 and float16 at d_head 32, 64,
-96, 128 and 256, and timed at d 256 (bfloat16) and d 128 (float16).
-With two or more cards it also runs TeraSort, WordCount, the hash join
-and the external sort over NCCL on up to four of them; with one it
-prints that this did not run.
+its plain version in float32, bfloat16 and float16 at d_head 32 to 576,
+and timed at d 256 and 512 (bfloat16) and d 128 (float16).  The byte
+data plane (``TileExchange``, ``DeviceArena``) runs at a 1 GiB row and
+256 MiB of tile rounds on one card, its bytes checked and its rates
+set beside the host link's.  With two or more cards it also runs
+TeraSort, WordCount, the hash join, the external sort, the byte plane
+and ring and Ulysses attention over NCCL on up to four of them; with
+one it prints that this did not run.
 float32 matrix products run without TF32 throughout, so the plain
 versions and oracles are full float32.
 
@@ -79,6 +82,16 @@ MULTI_EXT_N = 1 << 22       # multi_gpu external sort, per rank
 MULTI_EXT_CHUNKS = 4
 MULTI_EXT_BUCKETS = 16
 U32 = (1 << 32) - 1
+# the byte data plane on one card (D = 1)
+BYTE_ROW = 1 << 30          # exchange_padded: one 1 GiB source row
+BYTE_STAGED = 256 << 20     # exchange_into / exchange_bytes tile rounds
+BYTE_TILE = 4 << 20         # conf exchangeTileBytes default
+BYTE_WINDOW = 2             # conf deviceExchangeWindowRounds default
+ARENA_BYTES = 1 << 30       # DeviceArena, filled by ARENA_SPAN writes
+ARENA_SPAN = 4 << 20
+BYTE_REPS = 3               # timed calls of each byte-plane path
+HOST_LINK_BYTES_PER_S = 64e9  # PCIe 5.0 x16, each direction
+MULTI_PAIR_BYTES = 64 << 20   # multi_gpu byte plane, per (source, dest)
 # float32 "add" sums in another order in the kernel (sequential per
 # thread, then a tree) than in the log-step plain version; segments
 # average 1000 values of magnitude <= 1, so the two sums differ by far
@@ -103,14 +116,16 @@ NEG_INF = -1e30
 ATTN_M_TOL = 1e-5
 ATTN_L_RTOL = 1e-4
 ATTN_O_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
-# kernel 3's tensor-core instantiations (element type, compiled d_head);
-# the wrapper pads any other d_head <= 256 to the next compiled one
+# kernel 3's tensor-core instantiations (element type, compiled d_head),
+# and past d_head 256 its slab kernel (element type, o columns a CTA);
+# the wrapper pads any other d_head to the next size the kernel runs
 ATTN_TC_TYPES = ("Bf16", "F16")
 ATTN_TC_D = (64, 128, 256)
+ATTN_WIDE_SW = (64, 128, 256)
 ATTN_DTYPES = ("bfloat16", "float16", "float32")
-ATTN_CHECK_D = (32, 64, 96, 128, 256)
+ATTN_CHECK_D = (32, 64, 96, 128, 256, 320, 512, 576)
 # extra attention_time shapes at 8 x 8192, causal: (d_head, dtype)
-ATTN_TIME_EXTRA = ((256, "bfloat16"), (128, "float16"))
+ATTN_TIME_EXTRA = ((256, "bfloat16"), (128, "float16"), (512, "bfloat16"))
 # Attention outputs in bfloat16 against the float32 oracle (or each
 # other): the output's own rounding (2^-9 relative) plus p's rounding
 # before p . v (2^-9 per term).
@@ -259,10 +274,12 @@ def _sass_counts(_build, ops=("HGMMA", "UTMALDG", "HMMA")):
 
 def phase_build(_build):
     """Build the kernels, print the ptxas lines of kernels 1, 2 and 3
-    (registers, shared memory, spills), and check in the SASS that each
-    of kernel 3's tensor-core instantiations (bfloat16 and float16 at
-    d 64, 128 and 256) runs on wgmma (HGMMA) fed by TMA (UTMALDG), with
-    no mma.sync (HMMA) left."""
+    (registers, shared memory, spills) and any note that ptxas
+    serialised wgmma, and check in the SASS that each of kernel 3's
+    tensor-core instantiations (bfloat16 and float16 at d 64, 128 and
+    256, and the slab kernel at 64, 128 and 256 columns, with the q
+    tile resident or streamed) runs on wgmma
+    (HGMMA) fed by TMA (UTMALDG), with no mma.sync (HMMA) left."""
     t0 = time.monotonic()
     _build.load()
     secs = time.monotonic() - t0
@@ -270,21 +287,27 @@ def phase_build(_build):
         if src in ("flagged_scan.cu", "bitonic_block_sort.cu",
                    "block_attention.cu"):
             print(f"# ptxas {src} {name}: {used} | {spill}")
+    serial = [ln.strip() for ln in _build.build_log().splitlines()
+              if "C7514" in ln or "C7515" in ln or "serializ" in ln]
+    for ln in serial:
+        print(f"# ptxas note: {ln}")
     sass = {k: v for k, v in _sass_counts(_build).items()
-            if "attention_tc" in k}
-    require(len(sass) == len(ATTN_TC_TYPES) * len(ATTN_TC_D),
-            f"expected {len(ATTN_TC_TYPES) * len(ATTN_TC_D)} attention_tc "
-            f"kernels: {sass}")
-    for ty in ATTN_TC_TYPES:
-        for d in ATTN_TC_D:
-            require(any(f"attention_tc<{ty}, {d}>" in k for k in sass),
-                    f"attention_tc<{ty}, {d}> is not in the library: "
-                    f"{list(sass)}")
+            if "attention_tc" in k or "attention_wide" in k}
+    want = [f"attention_tc<{ty}, {d}>" for ty in ATTN_TC_TYPES
+            for d in ATTN_TC_D] + [f"attention_wide<{ty}, {sw}, {q}>"
+                                   for ty in ATTN_TC_TYPES
+                                   for sw in ATTN_WIDE_SW
+                                   for q in ("true", "false")]
+    require(len(sass) == len(want),
+            f"expected {len(want)} tensor-core attention kernels: {sass}")
+    for name in want:
+        require(any(name in k for k in sass),
+                f"{name} is not in the library: {list(sass)}")
     for name, c in sass.items():
         require(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                 f"{name}: SASS {c} lacks wgmma or TMA, or has mma.sync")
     phase("build", seconds=secs, sources=[p.name for p in _build.sources()],
-          sass_attention_tc=sass)
+          sass_attention_tc=sass, wgmma_serialised_notes=len(serial))
 
 
 def _adversarial(torch, case, n, gen, dev):
@@ -755,9 +778,10 @@ def _check_partials(torch, got, want, dtype, what):
 
 def phase_attention_check(torch, attn, gen, dev):
     """Kernel 3 against its plain version: every dtype (float32,
-    bfloat16, float16), d_head at each compiled size (64, 128, 256) and
-    padded ones (32, 96), causal and not, a ragged shape, rows masked
-    fully and partly."""
+    bfloat16, float16), d_head at each compiled size (64, 128, 256),
+    padded ones (32, 96) and past 256 (320 and 576: a full slab and a
+    narrower one; 512: two full slabs), causal and not, a ragged shape,
+    rows masked fully and partly."""
     worst = 0.0
     cases = [(dt, d, causal, n, s_q, s_k, qo, ko)
              for dt in ATTN_DTYPES for d in ATTN_CHECK_D
@@ -819,10 +843,40 @@ def _attention_bound(n, s, d, itemsize):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _sdpa_ms(torch, q, k, v, iters):
+    """Milliseconds of causal SDPA on ``[N, s, d]`` inputs through each
+    of its fused backends (flash, cuDNN, memory-efficient) that takes
+    them, or else the math one: the fastest time, its backend's name,
+    and every backend's time."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and times:
+            break
+        with sdpa_kernel(backend), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                sdpa(q[None], k[None], v[None], is_causal=True)
+            except RuntimeError:
+                continue
+            times[backend.name] = cuda_ms(
+                lambda: sdpa(q[None], k[None], v[None], is_causal=True),
+                iters=iters)
+    require(times, "no SDPA backend takes these inputs")
+    best = min(times, key=times.get)
+    return times[best], best, times
+
+
 def _attention_time(torch, attn, gen, dev, d, dt):
     """Kernel 3 at 8 x 8192, causal, head size ``d`` in ``dt``: held
-    against its plain version, timed beside it and SDPA; prints its
-    ``attention_time`` line and returns its numbers."""
+    against its plain version, timed beside it and SDPA (the fastest
+    backend that takes it); prints its ``attention_time`` line and
+    returns its numbers."""
     dtype = getattr(torch, dt)
     q, k, v = (_randn(torch, (ATTN_N, ATTN_S, d), dtype, gen, dev)
                for _ in range(3))
@@ -836,14 +890,13 @@ def _attention_time(torch, attn, gen, dev, d, dt):
                  iters=10)
     plain = cuda_ms(lambda: attn.block_attention_plain(
         q, k, v, 0, 0, True, scale), iters=2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = cuda_ms(lambda: sdpa(q[None], k[None], v[None], is_causal=True),
-                  iters=10)
+    lib, backend, backends = _sdpa_ms(torch, q, k, v, iters=10)
     b_ms, b_by = _attention_bound(ATTN_N, ATTN_S, d, 2)
     unmasked = 4 * d * ATTN_N * (ATTN_S * (ATTN_S + 1) // 2)
     phase("attention_time", n=ATTN_N, seq=ATTN_S, d_head=d, dtype=dt,
           causal=True, ms=ms, plain_ms=plain, library_ms=lib,
           library="scaled_dot_product_attention (normalises)",
+          library_backend=backend, library_backends_ms=backends,
           bound_ms=b_ms, bound_by=b_by,
           unmasked_tflop_per_s=unmasked / ms / 1e9, max_abs_err=err)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
@@ -852,14 +905,13 @@ def _attention_time(torch, attn, gen, dev, d, dt):
 
 def phase_attention_time(torch, attn, gen, dev):
     """Kernel 3 at the bench shape (8 x 8192, d 128, bfloat16, causal),
-    with its plain version and SDPA; at 8 x 8192 also at d 256 in
-    bfloat16 and d 128 in float16; and at 8 x 32768 beside SDPA.
+    with its plain version and SDPA; at 8 x 8192 also at d 256 and 512
+    in bfloat16 and d 128 in float16; and at 8 x 32768 beside SDPA.
     Returns the bench shape's numbers, with the largest error of all."""
     main = _attention_time(torch, attn, gen, dev, ATTN_D, "bfloat16")
     for d, dt in ATTN_TIME_EXTRA:
         err = _attention_time(torch, attn, gen, dev, d, dt)["max_abs_err"]
         main["max_abs_err"] = max(main["max_abs_err"], err)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     # long context: the plain version's score matrix (34 GB) does not
     # fit, so the kernel runs beside SDPA alone; phase_ring checks it
     # against the oracle at this length
@@ -868,14 +920,14 @@ def phase_attention_time(torch, attn, gen, dev):
                for _ in range(3))
     long_ms = cuda_ms(lambda: attn.block_attention(q, k, v, 0, 0, True),
                       iters=3)
-    long_lib = cuda_ms(lambda: sdpa(q[None], k[None], v[None],
-                                    is_causal=True), iters=3)
+    long_lib, long_backend, _ = _sdpa_ms(torch, q, k, v, iters=3)
     lb_ms, lb_by = _attention_bound(ATTN_N, ATTN_LONG_S, ATTN_D, 2)
     unmasked = 4 * ATTN_D * ATTN_N * (ATTN_LONG_S * (ATTN_LONG_S + 1) // 2)
     phase("attention_time", n=ATTN_N, seq=ATTN_LONG_S, d_head=ATTN_D,
           dtype="bfloat16", causal=True, ms=long_ms, plain_ms="not measured",
           library_ms=long_lib, library="scaled_dot_product_attention "
-          "(normalises)", bound_ms=lb_ms, bound_by=lb_by,
+          "(normalises)", library_backend=long_backend, bound_ms=lb_ms,
+          bound_by=lb_by,
           unmasked_tflop_per_s=unmasked / long_ms / 1e9)
     return main
 
@@ -980,6 +1032,266 @@ def phase_ring_fold(torch, attn, ring_mod, q, k, v, ring_out, shards=4):
     phase("ring_fold_1gpu", shards=shards, s_local=s_local,
           n_heads=ATTN_N, d_head=ATTN_D, dtype="bfloat16", causal=True,
           max_abs_err_vs_ring=worst, correct=True)
+
+
+def _host_ms(torch, fn, reps=BYTE_REPS):
+    """Host milliseconds of each of ``reps`` calls of ``fn``, the
+    device's queue drained before and after each."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return times
+
+
+def _copy_ms(torch, n, dev):
+    """Host milliseconds of one ``n``-byte ``copy_`` each way between
+    the card and pinned, then pageable, host memory (the best of
+    BYTE_REPS)."""
+    d = torch.empty(n, dtype=torch.uint8, device=dev)
+    res = {}
+    for kind in ("pinned", "pageable"):
+        h = torch.ones(n, dtype=torch.uint8, pin_memory=kind == "pinned")
+        res[f"h2d_{kind}_ms"] = min(_host_ms(
+            torch, lambda: d.copy_(h, non_blocking=True)))
+        res[f"d2h_{kind}_ms"] = min(_host_ms(
+            torch, lambda: h.copy_(d, non_blocking=True)))
+        del h
+    return res
+
+
+def _byte_line(path, n, ms, copies, dirs=("h2d", "d2h"), **fields):
+    """One ``byte_plane`` line: ``n`` payload bytes in each direction of
+    ``dirs`` in the best of ``ms``, beside the host-link bound (the link
+    runs both directions at once) and the copies of the same bytes
+    (``library_ms``: a pinned copy_ in each of ``dirs``, one after the
+    other)."""
+    best = min(ms)
+    phase("byte_plane", path=path, payload_bytes=n, directions=list(dirs),
+          ms=ms, ms_min=best, gb_per_s=n / best / 1e6,
+          bound_ms=n / HOST_LINK_BYTES_PER_S * 1e3,
+          bound_by="bytes each way over the host link (64 GB/s)",
+          library_ms=sum(copies[f"{d}_pinned_ms"] for d in dirs),
+          library="copy_ " + " then ".join(dirs) + ", pinned", **copies,
+          **fields, correct=True)
+
+
+def phase_byte_plane(torch, dev):
+    """The byte data plane on one card (D = 1): ``exchange_padded`` of
+    a 1 GiB pinned source row, full shot and windowed at the conf
+    defaults (4 MiB tiles, 2 rounds in flight: 256 rounds);
+    ``exchange_into`` and ``exchange_bytes`` (host-staged tile rounds) at
+    256 MiB; a 1 GiB ``DeviceArena`` filled by 4 MiB span writes and
+    read back.  Each path runs once with integrity on, its received
+    bytes held against the sent ones, then is timed on the host clock
+    beside its bound (its bytes each way over a 64 GB/s host link) and
+    pinned and pageable copies of the same bytes.  The path runs no
+    kernel: its device work is copies (and the identity all_to_all of a
+    group of one)."""
+    import numpy as np
+
+    from sparkrdma_tpu_torch.memory.device_arena import (
+        DeviceArena,
+        DeviceStagingBridge,
+    )
+    from sparkrdma_tpu_torch.parallel.exchange import (
+        PaddedSourceRow,
+        TileExchange,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    copies = _copy_ms(torch, BYTE_ROW, dev)
+    phase("host_link", bytes=BYTE_ROW, **copies,
+          gb_per_s={k: BYTE_ROW / v / 1e6 for k, v in copies.items()})
+
+    # exchange_padded of one pinned 1 GiB row, the stream ragged
+    n_row = BYTE_ROW - 12345
+    lengths = np.array([[n_row]], np.int64)
+    ex = TileExchange(device=dev, tile_bytes=BYTE_TILE, verify_integrity=True)
+    plan = ex.plan(lengths)
+    row = DeviceStagingBridge(dev).alloc_row(plan.total_cols)
+    sent = rand_bytes(plan.total_cols)
+    sent[n_row:] = 0
+    torch.from_numpy(row).copy_(sent)
+    del sent
+    src = {0: PaddedSourceRow(row, plan.total_cols)}
+    for name, window in (("full", 0), ("windowed", BYTE_WINDOW)):
+        ex.verify_integrity = True
+        landed = []
+        got = ex.exchange_padded(
+            lengths, src, window_rounds=window,
+            on_round=lambda r, lo, hi, rows: landed.append(r))[0][0]
+        require(landed == list(range(1 if window == 0 else plan.rounds)),
+                f"exchange_padded {name}: rounds landed {landed[:4]}...")
+        require(np.array_equal(got, row[:n_row]),
+                f"exchange_padded {name}: received bytes differ")
+        del got
+        ex.verify_integrity = False
+        ms = _host_ms(torch, lambda: ex.exchange_padded(
+            lengths, src, window_rounds=window))
+        _byte_line(f"exchange_padded_{name}", n_row, ms, copies,
+                   tile_bytes=plan.tile_bytes, rounds=plan.rounds,
+                   window_rounds=window, source="pinned")
+    profile(torch, "exchange_padded_windowed", lambda: ex.exchange_padded(
+        lengths, src, window_rounds=BYTE_WINDOW))
+    del row, src
+    staged = _copy_ms(torch, BYTE_STAGED, dev)
+
+    # host-staged tile rounds at 256 MiB, from a pageable row
+    n_st = BYTE_STAGED - 777
+    lengths = np.array([[n_st]], np.int64)
+    contig = rand_bytes(n_st).cpu().numpy()
+    ex = TileExchange(device=dev, tile_bytes=BYTE_TILE,
+                      max_rounds_in_flight=BYTE_WINDOW, verify_integrity=True)
+    got = ex.exchange_into(lengths, {0: contig})[0][0]
+    require(np.array_equal(got, contig), "exchange_into: bytes differ")
+    streams = [[contig.tobytes()]]
+    require(ex.exchange_bytes(streams)[0][0] == streams[0][0],
+            "exchange_bytes: bytes differ")
+    del got
+    ex.verify_integrity = False
+    rounds = ex.plan(lengths).rounds
+    _byte_line("exchange_into", n_st, _host_ms(
+        torch, lambda: ex.exchange_into(lengths, {0: contig})), staged,
+        tile_bytes=BYTE_TILE, rounds=rounds, window_rounds=BYTE_WINDOW,
+        source="pageable")
+    _byte_line("exchange_bytes", n_st, _host_ms(
+        torch, lambda: ex.exchange_bytes(streams)), staged,
+        tile_bytes=BYTE_TILE, rounds=rounds, window_rounds=BYTE_WINDOW,
+        source="bytes")
+    profile(torch, "exchange_into", lambda: ex.exchange_into(
+        lengths, {0: contig}))
+    del contig, streams
+
+    # the arena: 1 GiB of 4 MiB spans, written, read back, freed
+    arena = DeviceArena(ARENA_BYTES, device=dev)
+    data = rand_bytes(ARENA_BYTES).cpu().numpy()
+    spans = [arena.alloc(ARENA_SPAN) for _ in range(ARENA_BYTES // ARENA_SPAN)]
+    require([sp.offset for sp in spans]
+            == list(range(0, ARENA_BYTES, ARENA_SPAN)),
+            "arena: spans not first-fit in order")
+
+    def write_all():
+        for i, sp in enumerate(spans):
+            arena.write(sp, data[i * ARENA_SPAN:(i + 1) * ARENA_SPAN])
+
+    def read_all():
+        return [arena.read(sp.offset, ARENA_SPAN) for sp in spans]
+
+    write_ms = _host_ms(torch, write_all)
+    back = read_all()
+    require(all(b == data[i * ARENA_SPAN:(i + 1) * ARENA_SPAN].tobytes()
+                for i, b in enumerate(back)), "arena: read-back differs")
+    del back
+    read_ms = _host_ms(torch, read_all)
+    full = arena.stats()
+    for sp in spans:
+        sp.free()
+    empty = arena.stats()
+    require(full["allocated_bytes"] == ARENA_BYTES
+            and empty["allocated_bytes"] == 0
+            and empty["free_extents"] == 1,
+            f"arena stats: {full} then {empty}")
+    _byte_line("arena_write", ARENA_BYTES, write_ms, copies, ("h2d",),
+               span_bytes=ARENA_SPAN, spans=len(spans),
+               writes=full["writes"])
+    _byte_line("arena_read", ARENA_BYTES, read_ms, copies, ("d2h",),
+               span_bytes=ARENA_SPAN, spans=len(spans))
+    del arena, data
+
+
+def _pattern(torch, s, d, n, dev):
+    """Stream ``s -> d`` of the multi-GPU byte plane: ``n`` bytes of a
+    hash of (s, d, position), made on the device."""
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    return (((i * 2654435761 + s * 40503 + d * 97) >> 13) & 0xFF).to(
+        torch.uint8)
+
+
+def _multi_gpu_byte_plane(torch, group, pair_bytes, timed):
+    """``exchange_padded`` full and windowed and ``exchange_into`` over
+    the group, about ``pair_bytes`` per (source, destination) pair
+    (ragged), integrity on, against the transposed-streams oracle: rank
+    r's row s must be stream s -> r."""
+    import numpy as np
+
+    from sparkrdma_tpu_torch.memory.device_arena import DeviceStagingBridge
+    from sparkrdma_tpu_torch.parallel.exchange import (
+        PaddedSourceRow,
+        TileExchange,
+        row_offsets,
+    )
+
+    rank, D, dev = group.rank, group.size, group.device
+    lengths = np.array([[pair_bytes - 4096 * ((s + d) % 3) - s
+                         for d in range(D)] for s in range(D)], np.int64)
+    ex = TileExchange(group, tile_bytes=BYTE_TILE, verify_integrity=True)
+    C = ex.plan(lengths).total_cols
+    row = DeviceStagingBridge(dev).alloc_row(D * C)
+    offs = row_offsets(lengths[rank])
+    contig = np.empty(int(offs[-1]), np.uint8)
+    for d in range(D):
+        n = int(lengths[rank, d])
+        stream = _pattern(torch, rank, d, n, dev).cpu().numpy()
+        row[d * C:d * C + n] = stream
+        row[d * C + n:(d + 1) * C] = 0
+        contig[offs[d]:offs[d + 1]] = stream
+
+    def check(out, what):
+        for s in range(D):
+            got = torch.from_numpy(np.ascontiguousarray(out[rank][s]))
+            want = _pattern(torch, s, rank, int(lengths[s, rank]), dev)
+            require(torch.equal(got.to(dev), want),
+                    f"rank {rank}: {what} stream {s}->{rank} differs")
+
+    src = {rank: PaddedSourceRow(row, C)}
+    check(timed("byte_padded_full_s",
+                lambda: ex.exchange_padded(lengths, src)),
+          "exchange_padded full")
+    check(timed("byte_padded_windowed_s",
+                lambda: ex.exchange_padded(lengths, src,
+                                           window_rounds=BYTE_WINDOW)),
+          "exchange_padded windowed")
+    check(timed("byte_into_s",
+                lambda: ex.exchange_into(lengths, {rank: contig})),
+          "exchange_into")
+
+
+def _multi_gpu_attention(torch, group, seq, timed):
+    """``ring_attention`` and ``ulysses_attention`` (heads permitting)
+    over the group, causal, 8 heads x ``seq``, d 128, bfloat16: each
+    rank's output shard against the same rows of the one-card result
+    (every rank draws the whole input)."""
+    from sparkrdma_tpu_torch.models import ring_attention, ulysses_attention
+
+    rank, D, dev = group.rank, group.size, group.device
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    q, k, v = (_randn(torch, (ATTN_N, seq, ATTN_D), dtype, gen, dev)
+               for _ in range(3))
+    one = ring_attention(q, k, v, causal=True)
+    mine = slice(rank * (seq // D), (rank + 1) * (seq // D))
+    q, k, v = (x[:, mine].contiguous() for x in (q, k, v))
+    scheds = [("ring", ring_attention)]
+    if ATTN_N % D == 0:
+        scheds.append(("ulysses", ulysses_attention))
+    for name, fn in scheds:
+        out = timed(f"{name}_attention_s",
+                    lambda: fn(q, k, v, group=group, causal=True))
+        require(out.shape == q.shape and torch.allclose(
+            out.float(), one[:, mine].float(), **ATTN_OUT_TOL),
+                f"rank {rank}: {name} attention over the group differs "
+                "from the one-card result")
 
 
 def _scan_launches(torch, _build, fn):
@@ -1398,14 +1710,17 @@ def _lengths(torch, group, n):
     return group.all_gather(t).reshape(-1).tolist()
 
 
-def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim, n_ext):
+def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim, n_ext,
+                    pair_bytes=MULTI_PAIR_BYTES, attn_seq=ATTN_S):
     """TeraSort (``n_sort`` records per rank), WordCount (``n_sort`` Zipf
     keys per rank), the hash join (``n_fact`` fact and ``n_dim``
     dimension rows per rank) and the external sort (``n_ext`` records per
     rank in chunks) through their host drivers on this rank's shard of
     one seeded input, which every rank draws whole and checks its share
-    of against a one-card oracle.  Returns the host seconds of each
-    driver call."""
+    of against a one-card oracle; the byte plane at ``pair_bytes`` per
+    pair against the transposed streams; ring and Ulysses attention over
+    ``attn_seq`` against the one-card result.  Returns the host seconds
+    of each call."""
     import numpy as np
 
     from sparkrdma_tpu_torch import HashJoiner, TeraSorter, WordCounter
@@ -1473,6 +1788,8 @@ def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim, n_ext):
             == int((fk < n_dim * world).sum()), "multi-GPU join row count")
 
     _multi_gpu_external_sort(torch, group, n_ext, timed)
+    _multi_gpu_byte_plane(torch, group, pair_bytes, timed)
+    _multi_gpu_attention(torch, group, attn_seq, timed)
     return times
 
 
@@ -1549,10 +1866,12 @@ def _multi_gpu_rank(rank, world, store, out_dir):
 
 
 def phase_multi_gpu(torch):
-    """TeraSort, WordCount, the hash join and the external sort over NCCL
-    on min(cards, 4) cards, one process per card, each rank against a
-    one-card oracle; a failure fails the run.  With one card nothing
-    runs: NCCL refuses two ranks on one GPU."""
+    """TeraSort, WordCount, the hash join, the external sort, the byte
+    plane (``exchange_padded`` full and windowed, ``exchange_into``) and
+    ring and Ulysses attention over NCCL on min(cards, 4) cards, one
+    process per card, each rank against a one-card oracle; a failure
+    fails the run.  With one card nothing runs: NCCL refuses two ranks
+    on one GPU."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -1575,7 +1894,9 @@ def phase_multi_gpu(torch):
           external_sort_records_per_rank=MULTI_EXT_N,
           external_sort_chunks_per_rank=MULTI_EXT_CHUNKS,
           external_sort_buckets=MULTI_EXT_BUCKETS,
-          seconds_max_over_ranks={k: max(t[k] for t in times)
+          byte_plane_pair_bytes=MULTI_PAIR_BYTES, byte_tile=BYTE_TILE,
+          attention_heads=ATTN_N, attention_seq=ATTN_S,
+          attention_d_head=ATTN_D, seconds_max_over_ranks={k: max(t[k] for t in times)
                                   for k in times[0]}, correct=True)
 
 
@@ -1715,8 +2036,11 @@ def main(argv=None) -> int:
         phase_ring_fold(torch, attn, ring_mod, q, k, v, ring_out)
         del q, k, v, ring_out
         torch.cuda.empty_cache()
-        # last: its long profile (host-bound, 2 s) left torch.profiler
-        # without kernel 3's records in the attention profiles after it
+        # after the attention phases: a long profile (these two are
+        # host-bound) left torch.profiler without kernel 3's records in
+        # the attention profiles after it
+        phase_byte_plane(torch, dev)
+        torch.cuda.empty_cache()
         phase_external_sort(torch, ext_mod, args.seed, dev)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

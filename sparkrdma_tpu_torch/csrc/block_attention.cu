@@ -25,11 +25,12 @@
 // wgmma, fed from shared memory that TMA fills, so the 16-bit design is
 // built around both.
 //
-// Head sizes.  Each design is compiled at d = 64, 128 and 256; the
-// wrapper (ops/attention.py) zero-pads q, k and v of any other d <= 256
-// to the next of these and cuts o back, which is exact (zero columns
-// add 0 to every score and give o columns that are cut off), with the
-// scale of the unpadded d passed in.
+// Head sizes.  Each design is compiled at d = 64, 128 and 256, and past
+// 256 runs as slabs of o (attention_wide, attention_f32_wide) at any
+// multiple of 64; the wrapper (ops/attention.py) zero-pads q, k and v of
+// any other d to the next of these and cuts o back, which is exact (zero
+// columns add 0 to every score and give o columns that are cut off),
+// with the scale of the unpadded d passed in.
 //
 // 16-bit design (bfloat16 or float16, one template over the element
 // type E: the TMA element type, the wgmma operand type and the rounding
@@ -392,17 +393,17 @@ __device__ __forceinline__ void issue_scores(float (&sacc)[tile_k<D>() / 2],
   wgmma_commit();
 }
 
-// o += p . v against one V tile: issued and committed, not waited for
-// (after a wgmma_fence()).
-template <class E, int D>
-__device__ __forceinline__ void issue_pv(
-    float (&oacc)[D / 2], const uint32_t (&pf)[tile_k<D>() / 16][4],
-    uint32_t v) {
-  using L = Layout<D>;
+// o += p . v against one V tile of TK keys and D columns: issued and
+// committed, not waited for (after a wgmma_fence()).
+template <class E, int D, int TK = tile_k<D>()>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pf)[TK / 16][4],
+                                         uint32_t v) {
 #pragma unroll
-  for (int kk = 0; kk < L::kTK / 16; ++kk) {
-    // 16 keys (rows of V) from kk * 16; panels of 64 columns apart
-    const uint64_t dv = sw128_desc(v + kk * 16 * 128, L::kKPanelBytes, 1024);
+  for (int kk = 0; kk < TK / 16; ++kk) {
+    // 16 keys (rows of V) from kk * 16; panels of 64 columns TK * 128
+    // bytes apart
+    const uint64_t dv = sw128_desc(v + kk * 16 * 128, TK * 128, 1024);
     wgmma_rs<E, D>(oacc, pf[kk], dv);
   }
   wgmma_commit();
@@ -694,6 +695,342 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
+// ------------------------------- d_head > 256, bfloat16 and float16 (wgmma)
+//
+// At d = 512 a 128-row q tile alone is 128 KB of shared memory, and o of
+// 64 rows x 512 float32 is 256 registers a thread, past the 240 a
+// consumer warpgroup gets; so past d = 256 (d a multiple of 64, which the
+// wrapper pads to) each CTA owns one slab of at most 256 columns of o and
+// recomputes the scores over all of d.  The grid is (q tile, batch,
+// slab); the CTA keeps attention_tc's warpgroups, 128-row q tile, online
+// softmax and causal tile skip, with 64-key K/V tiles:
+//  - the producer streams K (and, past d = 512, q) through a ring of
+//    64-column panels: each stage one panel of the K tile (8 KB) and,
+//    without a resident q, the same panel of the q tile (16 KB; 6
+//    stages); up to d = 512 the q tile stays resident (at most 128 KB)
+//    and the ring holds 4 K panels.  A tile's scores are d / 64 panels of
+//    wgmma m64n64k16, accumulated in registers, each stage released as
+//    soon as the panel's products are done (one wgmma group stays in
+//    flight);
+//  - V comes as the slab's columns of each K/V tile (2 stages), and
+//    tile j - 1's p . v (m64n{SW}k16, A from registers, as attention_tc)
+//    is issued with tile j's last score panel, so it runs under tile j's
+//    softmax.
+// Registers at SW = 256 are those of attention_tc<E, 256>: o 128, scores
+// 32, p 16.  Shared memory at SW = 256: 64 KB of V, and 128 KB of q with
+// 32 KB of K panels (d <= 512) or 144 KB of q and K panels.
+// Work: the q . k^T products repeat once per slab (1.5x the operations of
+// one pass at d = 512), and past d = 512 q is read from L2 once per K
+// tile.  Slabs past the first write o only; every slab computes the same
+// m and l, and slab 0 writes them.  o columns at or past d are computed
+// on whatever V panels the producer skipped and never written.
+
+constexpr int kWideTK = 64;        // keys per K/V tile
+constexpr int kWideSlab = 256;     // o columns per CTA (the slab stride)
+constexpr int kKPanel64 = kWideTK * 128;  // 64 keys of one 64-column panel
+constexpr int kQResMax = 8;  // panels of a resident q tile (128 KB, d 512)
+
+// The panel ring of attention_wide.  QRES: the q tile stays resident in
+// shared memory (d <= 64 * kQResMax) and each stage carries one K panel;
+// otherwise each stage carries a q panel and a K panel.
+template <bool QRES>
+struct PanelRing {
+  static constexpr int kStagesP = QRES ? 4 : 6;
+  static constexpr int kBytes = (QRES ? 0 : kQPanelBytes) + kKPanel64;
+  // q panel p, in stage s of the ring at `ring` or resident at `sq`
+  __device__ static __forceinline__ uint32_t q(uint32_t ring, uint32_t sq,
+                                               int s, int p) {
+    return QRES ? sq + (uint32_t)p * kQPanelBytes
+                : ring + (uint32_t)s * kBytes;
+  }
+  __device__ static __forceinline__ uint32_t k(uint32_t ring, int s) {
+    return ring + (uint32_t)s * kBytes + (QRES ? 0 : kQPanelBytes);
+  }
+};
+
+// Byte offsets from a 1024-aligned base: the ring, V, the barriers
+// (full_q, then full_p and empty_p per ring stage, full_v and empty_v per
+// V stage), then the resident q tile, whose size follows d.
+template <int SW, bool QRES>
+struct WideLayout {
+  using R = PanelRing<QRES>;
+  static constexpr int kVTileBytes = (SW / kPanelCols) * kKPanel64;
+  static constexpr int kV = R::kStagesP * R::kBytes;
+  static constexpr int kBars = kV + kStages * kVTileBytes;
+  static constexpr int kBarBytes = 8 * (1 + 2 * R::kStagesP + 2 * kStages);
+  static constexpr int kQ = (kBars + kBarBytes + 1023) / 1024 * 1024;
+  static int alloc(int panels) {  // with room to align the base
+    return kQ + (QRES ? panels * kQPanelBytes : 0) + 1024;
+  }
+};
+
+struct WideArgs {
+  HopperArgs h;  // tq box 64 x 128 rows, tk and tv 64 x kWideTK
+  int d;         // head size, a multiple of 64 (o's row stride)
+  int panels;    // d / 64
+  int n_slabs;   // slabs of this launch
+  int slab0;     // the first slab's index
+};
+
+// One panel of S = q . k^T (64 columns of d, 4 steps of k16), added to
+// the scores unless it is the first: issued and committed, not waited for
+// (after a wgmma_fence()).
+template <class E>
+__device__ __forceinline__ void issue_panel(float (&sacc)[kWideTK / 2],
+                                            uint32_t q, uint32_t k,
+                                            bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dq = sw128_desc(q + kk * 32, 16, 1024);
+    const uint64_t dk = sw128_desc(k + kk * 32, 16, 1024);
+    wgmma_ss_n64<E>(sacc, dq, dk, (int)(!first || kk > 0));
+  }
+  wgmma_commit();
+}
+
+// The first `count` panels of a K tile's scores into sacc, from the
+// ring's stage of panel counter t on: each is issued once its stage has
+// filled, and each stage but the last is released once the next panel is
+// issued and the products before it are done.  Returns with the last
+// panel's wgmma group in flight and its stage held.
+template <class E, bool QRES>
+__device__ __forceinline__ void score_panels(float (&sacc)[kWideTK / 2],
+                                             int count, int& t,
+                                             uint32_t ring, uint32_t sq,
+                                             uint32_t bars, uint32_t q_rows,
+                                             int lane) {
+  using R = PanelRing<QRES>;
+  for (int p = 0; p < count; ++p, ++t) {
+    const int s = t % R::kStagesP;
+    mbar_wait(bars + 8u * (1 + s), (t / R::kStagesP) & 1);
+    wgmma_fence();
+    issue_panel<E>(sacc, R::q(ring, sq, s, p) + q_rows, R::k(ring, s),
+                   p == 0);
+    if (p > 0) {
+      wgmma_wait<1>();
+      if (lane == 0)
+        mbar_arrive(bars +
+                    8u * (1 + R::kStagesP + (t - 1) % R::kStagesP));
+    }
+  }
+}
+
+template <class E, int SW, bool QRES>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    attention_wide(const __grid_constant__ WideArgs w) {
+  using L = WideLayout<SW, QRES>;
+  using R = PanelRing<QRES>;
+  constexpr int kP = R::kStagesP;
+  const HopperArgs& a = w.h;
+  extern __shared__ __align__(16) unsigned char hopper_smem[];
+  const uint32_t raw = smem_u32(hopper_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the ring
+  const uint32_t bars = base + L::kBars;
+  const uint32_t sQ = base + L::kQ;  // the resident q tile (QRES)
+  const uint32_t full_q = bars;
+  auto full_p = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_p = [&](int s) { return bars + 8u * (1 + kP + s); };
+  auto full_v = [&](int s) { return bars + 8u * (1 + 2 * kP + s); };
+  auto empty_v = [&](int s) {
+    return bars + 8u * (1 + 2 * kP + kStages + s);
+  };
+  auto sV = [&](int s) { return base + L::kV + (uint32_t)s * L::kVTileBytes; };
+
+  // heaviest q tiles first: blockIdx runs over (tile descending, batch,
+  // slab)
+  const int slab = w.slab0 + (int)(blockIdx.x % w.n_slabs);
+  const int rest = (int)(blockIdx.x / w.n_slabs);
+  const int n = rest % a.n;
+  const int q_tile = a.n_q_tiles - 1 - rest / a.n;
+  const int q0 = q_tile * kTileQ;
+  const int col0 = slab * kWideSlab;
+  const int panels = w.panels;
+  const Visit visit = plan_visit<kWideTK>(a, q0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kP; ++s) {
+      mbar_init(full_p(s), 1);
+      mbar_init(empty_p(s), kConsumers * 4);
+    }
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_v(s), kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      // V panels of the slab that lie below d (the rest are never read
+      // into a written column of o)
+      const int v_panels = min(SW / kPanelCols, (w.d - col0) / kPanelCols);
+      if (QRES && !visit.all_masked) {
+        mbar_expect_tx(full_q, panels * kQPanelBytes);
+        for (int p = 0; p < panels; ++p)
+          tma_load_3d(sQ + p * kQPanelBytes, &a.tq, full_q, p * kPanelCols,
+                      q0, n);
+      }
+      int t = 0;
+      for (int j = 0; j < visit.n_tiles; ++j) {
+        if (!visit.all_masked) {
+          for (int p = 0; p < panels; ++p, ++t) {
+            const int s = t % kP;
+            mbar_wait(empty_p(s), ((t / kP) & 1) ^ 1);
+            mbar_expect_tx(full_p(s), R::kBytes);
+            if (!QRES)
+              tma_load_3d(R::q(base, sQ, s, p), &a.tq, full_p(s),
+                          p * kPanelCols, q0, n);
+            tma_load_3d(R::k(base, s), &a.tk, full_p(s), p * kPanelCols,
+                        j * kWideTK, n);
+          }
+        }
+        const int s = j % kStages;
+        mbar_wait(empty_v(s), ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_v(s), v_panels * kKPanel64);
+        for (int c = 0; c < v_panels; ++c)
+          tma_load_3d(sV(s) + c * kKPanel64, &a.tv, full_v(s),
+                      col0 + c * kPanelCols, j * kWideTK, n);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    Seat at;
+    at.wrow0 = q0 + wg * 64 + warp * 16;
+    at.row = at.wrow0 + g;
+    at.tig = tig;
+    at.delta = a.k_offset - a.q_offset;
+    const int row = at.row;
+    const uint32_t q_rows = wg * 64 * 128;  // this warpgroup's q rows
+
+    float oacc[SW / 2];
+#pragma unroll
+    for (int i = 0; i < SW / 2; ++i) oacc[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};  // on the raw (unscaled) product
+    float l_run[2] = {0.f, 0.f};
+    float alpha[2];
+    float sacc[kWideTK / 2];
+    uint32_t pf[kWideTK / 16][4];
+
+    if (visit.all_masked) {
+      // every row masked throughout: p = 1 on each key below s_k
+      for (int j = 0; j < visit.n_tiles; ++j) {
+        const int s = j % kStages;
+#pragma unroll
+        for (int i = 0; i < kWideTK / 2; ++i) {
+          const int col = j * kWideTK + (i / 4) * 8 + 2 * tig + (i & 1);
+          sacc[i] = col < a.s_k ? 1.f : 0.f;
+          l_run[(i >> 1) & 1] += sacc[i];
+        }
+        p_to_frag<E, kWideTK>(sacc, pf);
+        mbar_wait(full_v(s), (j / kStages) & 1);
+        reg_fence(oacc);
+        wgmma_fence();
+        issue_pv<E, SW, kWideTK>(oacc, pf, sV(s));
+        wgmma_wait<0>();
+        reg_fence(oacc);
+        pf_fence(pf);
+        if (lane == 0) mbar_arrive(empty_v(s));
+      }
+    } else {
+      // Panels 0 .. d/64 - 2 of a tile run in score_panels; the last one
+      // is issued here, with tile j - 1's p . v beside it from tile 1 on,
+      // so that tile j's softmax runs while that p . v is in flight.
+      int t = 0;  // panels consumed so far
+      if (QRES) mbar_wait(full_q, 0);
+      score_panels<E, QRES>(sacc, panels - 1, t, base, sQ, bars, q_rows,
+                            lane);
+      {
+        const int s = t % kP;
+        mbar_wait(full_p(s), (t / kP) & 1);
+        wgmma_fence();
+        issue_panel<E>(sacc, R::q(base, sQ, s, panels - 1) + q_rows,
+                       R::k(base, s), panels == 1);
+        ++t;
+        wgmma_wait<0>();
+        reg_fence(sacc);
+        if (lane == 0) {
+          if (panels > 1) mbar_arrive(empty_p((t - 2) % kP));
+          mbar_arrive(empty_p((t - 1) % kP));
+        }
+      }
+      softmax_tile<kWideTK>(sacc, m_run, l_run, alpha, a, 0, at);
+      p_to_frag<E, kWideTK>(sacc, pf);
+      for (int j = 1; j < visit.n_tiles; ++j) {
+        const int sp = (j - 1) % kStages;
+        score_panels<E, QRES>(sacc, panels - 1, t, base, sQ, bars, q_rows,
+                              lane);
+        const int s = t % kP;
+        mbar_wait(full_p(s), (t / kP) & 1);
+        mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
+        reg_fence(oacc);
+        wgmma_fence();
+        issue_panel<E>(sacc, R::q(base, sQ, s, panels - 1) + q_rows,
+                       R::k(base, s), panels == 1);
+        issue_pv<E, SW, kWideTK>(oacc, pf, sV(sp));
+        ++t;
+        wgmma_wait<1>();  // the scores; p . v may still run
+        reg_fence(sacc);
+        if (lane == 0) {
+          if (panels > 1) mbar_arrive(empty_p((t - 2) % kP));
+          mbar_arrive(empty_p((t - 1) % kP));
+        }
+        softmax_tile<kWideTK>(sacc, m_run, l_run, alpha, a, j * kWideTK, at);
+        wgmma_wait<0>();
+        reg_fence(oacc);
+        pf_fence(pf);
+        if (lane == 0) mbar_arrive(empty_v(sp));
+        p_to_frag<E, kWideTK>(sacc, pf);
+#pragma unroll
+        for (int i = 0; i < SW / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      }
+      const int last = visit.n_tiles - 1;
+      const int sl = last % kStages;
+      mbar_wait(full_v(sl), (last / kStages) & 1);
+      reg_fence(oacc);
+      wgmma_fence();
+      issue_pv<E, SW, kWideTK>(oacc, pf, sV(sl));
+      wgmma_wait<0>();
+      reg_fence(oacc);
+      pf_fence(pf);
+      if (lane == 0) mbar_arrive(empty_v(sl));
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+      const int r = row + h * 8;
+      if (r >= a.s_q) continue;
+      const size_t out_row = (size_t)n * a.s_q + r;
+      if (slab == 0 && tig == 0) {
+        a.m[out_row] = m_run[h] == kNegInf ? kNegInf : m_run[h] * a.scale;
+        a.l[out_row] = l_run[h];
+      }
+#pragma unroll
+      for (int c = 0; c < SW / 8; ++c) {
+        const int col = col0 + c * 8 + 2 * tig;
+        if (col < w.d) {
+          const float2 val = make_float2(oacc[4 * c + 2 * h],
+                                         oacc[4 * c + 2 * h + 1]);
+          *reinterpret_cast<float2*>(a.o + out_row * w.d + col) = val;
+        }
+      }
+    }
+  }
+}
+
 #undef SR_REGS32
 #undef SR_REGS64
 #undef SR_REGS128
@@ -877,6 +1214,158 @@ size_t smem_f32() {
                           (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
 }
 
+// float32 past d = 256: attention_f32's arithmetic with the scores summed
+// over 64-column chunks of d (q and K chunks through shared memory) and
+// one slab of kWideSlab columns of o per CTA (grid: slab, q tile,
+// batch).  Every slab computes the same m and l; slab 0 writes them.
+// Shared memory 113 KB.
+constexpr int kF32Chunk = 64;
+
+struct WideF32Args {
+  Args a;
+  int d;        // head size, a multiple of 64 (o's row stride)
+  int n_slabs;  // ceil(d / kWideSlab)
+};
+
+__global__ void __launch_bounds__(kF32Threads)
+    attention_f32_wide(WideF32Args w) {
+  const Args& a = w.a;
+  constexpr int kQS = kF32Chunk + 1;  // padded row of q and k chunks
+  constexpr int kPS = kBlockK + 1;
+  constexpr int kDC = kWideSlab / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + kBlockQ * kQS;
+  float* sV = sK + kBlockK * kQS;
+  float* sP = sV + kBlockK * kWideSlab;
+  float* sAlpha = sP + kBlockQ * kPS;
+
+  const int D = w.d;
+  const int col0 = (int)(blockIdx.x % w.n_slabs) * kWideSlab;
+  const int rest = (int)(blockIdx.x / w.n_slabs);
+  const int n = rest / a.n_q_tiles;
+  const int q0 = (rest % a.n_q_tiles) * kBlockQ;
+  const int tr = threadIdx.x >> 4;
+  const int tc = threadIdx.x & 15;
+  const int srow = threadIdx.x >> 2;
+  const int part = threadIdx.x & 3;
+  const float* q = static_cast<const float*>(a.q) + (size_t)n * a.s_q * D;
+  const float* k = static_cast<const float*>(a.k) + (size_t)n * a.s_k * D;
+  const float* v = static_cast<const float*>(a.v) + (size_t)n * a.s_k * D;
+
+  float acc[4][kDC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) acc[i][c] = 0.f;
+  float m_run = kNegInf;
+  float l_run = 0.f;
+
+  const int n_k_tiles = (a.s_k + kBlockK - 1) / kBlockK;
+  for (int t = 0; t < n_k_tiles; ++t) {
+    const int kbase = t * kBlockK;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kF32Chunk) {
+      __syncthreads();  // the last chunk's products (and tile's p . v)
+      for (int c = threadIdx.x; c < kBlockQ * kF32Chunk; c += kF32Threads) {
+        const int r = c / kF32Chunk, col = c0 + c % kF32Chunk;
+        sQ[r * kQS + c % kF32Chunk] =
+            q0 + r < a.s_q ? q[(size_t)(q0 + r) * D + col] : 0.f;
+        sK[r * kQS + c % kF32Chunk] =
+            kbase + r < a.s_k ? k[(size_t)(kbase + r) * D + col] : 0.f;
+      }
+      __syncthreads();
+      for (int d = 0; d < kF32Chunk; ++d) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = sQ[(tr + 16 * i) * kQS + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = sK[(tc + 16 * j) * kQS + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sP[(tr + 16 * i) * kPS + tc + 16 * j] = mask_score(
+            s[i][j], q0 + tr + 16 * i, kbase + tc + 16 * j, a);
+    for (int c = threadIdx.x; c < kBlockK * kWideSlab; c += kF32Threads) {
+      const int r = c / kWideSlab, col = col0 + c % kWideSlab;
+      sV[c] = kbase + r < a.s_k && col < D ? v[(size_t)(kbase + r) * D + col]
+                                           : 0.f;
+    }
+    __syncthreads();
+
+    float mx = -INFINITY;
+    for (int j = part; j < kBlockK; j += 4) mx = fmaxf(mx, sP[srow * kPS + j]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = m_run - m_new == 0.f ? 1.f : expf(m_run - m_new);
+    m_run = m_new;
+    float rs = 0.f;
+    for (int j = part; j < kBlockK; j += 4) {
+      const float x = sP[srow * kPS + j];
+      const float p = x == -INFINITY ? 0.f
+                      : x == m_new   ? 1.f
+                                     : expf(x - m_new);
+      sP[srow * kPS + j] = p;
+      rs += p;
+    }
+    l_run = l_run * alpha + rs;
+    if (part == 0) sAlpha[srow] = alpha;
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = sAlpha[tr + 16 * i];
+#pragma unroll
+      for (int c = 0; c < kDC; ++c) acc[i][c] *= al;
+    }
+    for (int j = 0; j < kBlockK; ++j) {
+      float vv[kDC];
+#pragma unroll
+      for (int c = 0; c < kDC; ++c) vv[c] = sV[j * kWideSlab + tc + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = sP[(tr + 16 * i) * kPS + j];
+#pragma unroll
+        for (int c = 0; c < kDC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+  if (col0 == 0 && part == 0 && q0 + srow < a.s_q) {
+    a.m[(size_t)n * a.s_q + q0 + srow] = m_run;
+    a.l[(size_t)n * a.s_q + q0 + srow] = l_run;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + tr + 16 * i;
+    if (r >= a.s_q) continue;
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) {
+      const int col = col0 + tc + 16 * c;
+      if (col < D) a.o[((size_t)n * a.s_q + r) * D + col] = acc[i][c];
+    }
+  }
+}
+
+constexpr size_t kSmemF32Wide =
+    sizeof(float) * ((size_t)(kBlockQ + kBlockK) * (kF32Chunk + 1) +
+                     (size_t)kBlockK * kWideSlab +
+                     (size_t)kBlockQ * (kBlockK + 1) + kBlockQ);
+
 // ----------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
@@ -919,28 +1408,41 @@ bool make_map(CUtensorMap* map, const void* ptr, int n, int rows, int d,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The arguments of a 16-bit launch at head size d, with `box_k`-row K
+// and V boxes; false where a tensor map cannot be built.
+template <class E>
+bool hopper_args(HopperArgs* a, const void* q, const void* k, const void* v,
+                 float* m, float* l, float* o, int n, int s_q, int s_k,
+                 int d, int box_k, int q_offset, int k_offset, int causal,
+                 float scale) {
+  if (!make_map<E>(&a->tq, q, n, s_q, d, kTileQ) ||
+      !make_map<E>(&a->tk, k, n, s_k, d, box_k) ||
+      !make_map<E>(&a->tv, v, n, s_k, d, box_k))
+    return false;
+  a->m = m;
+  a->l = l;
+  a->o = o;
+  a->n = n;
+  a->n_q_tiles = (s_q + kTileQ - 1) / kTileQ;
+  a->s_q = s_q;
+  a->s_k = s_k;
+  a->q_offset = q_offset;
+  a->k_offset = k_offset;
+  a->causal = causal;
+  a->scale = scale;
+  a->scale_log2 = scale * kLog2e;
+  return true;
+}
+
 template <class E, int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, float* m,
                       float* l, float* o, int n, int s_q, int s_k,
                       int q_offset, int k_offset, int causal, float scale,
                       cudaStream_t st) {
   HopperArgs a;
-  if (!make_map<E>(&a.tq, q, n, s_q, D, kTileQ) ||
-      !make_map<E>(&a.tk, k, n, s_k, D, tile_k<D>()) ||
-      !make_map<E>(&a.tv, v, n, s_k, D, tile_k<D>()))
+  if (!hopper_args<E>(&a, q, k, v, m, l, o, n, s_q, s_k, D, tile_k<D>(),
+                      q_offset, k_offset, causal, scale))
     return cudaErrorInvalidValue;
-  a.m = m;
-  a.l = l;
-  a.o = o;
-  a.n = n;
-  a.n_q_tiles = (s_q + kTileQ - 1) / kTileQ;
-  a.s_q = s_q;
-  a.s_k = s_k;
-  a.q_offset = q_offset;
-  a.k_offset = k_offset;
-  a.causal = causal;
-  a.scale = scale;
-  a.scale_log2 = scale * kLog2e;
   const long long blocks = (long long)a.n_q_tiles * n;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int smem = Layout<D>::kAlloc;
@@ -951,7 +1453,54 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, float* m,
   return cudaGetLastError();
 }
 
-// The tensor-core kernel at a compiled head size.
+// Slabs [slab0, slab0 + n_slabs) of attention_wide in one launch, with
+// the q tile resident where it fits (d <= 64 * kQResMax).
+template <class E, int SW, bool QRES>
+cudaError_t launch_wide_q(const WideArgs& w, cudaStream_t st) {
+  const long long blocks = (long long)w.h.n_q_tiles * w.h.n * w.n_slabs;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = WideLayout<SW, QRES>::alloc(w.panels);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_wide<E, SW, QRES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attention_wide<E, SW, QRES>
+      <<<(unsigned)blocks, kHopperThreads, smem, st>>>(w);
+  return cudaGetLastError();
+}
+
+template <class E, int SW>
+cudaError_t launch_wide(WideArgs w, int slab0, int n_slabs, cudaStream_t st) {
+  w.slab0 = slab0;
+  w.n_slabs = n_slabs;
+  if (w.panels <= kQResMax) return launch_wide_q<E, SW, true>(w, st);
+  return launch_wide_q<E, SW, false>(w, st);
+}
+
+// The tensor-core kernel past d = 256 (d a multiple of 64): the 256-column
+// slabs in one launch, and a narrower last slab (64, 128 or, for 192
+// columns, 256 wide) in a second.
+template <class E>
+cudaError_t launch_wide_d(int d, const void* q, const void* k, const void* v,
+                          float* m, float* l, float* o, int n, int s_q,
+                          int s_k, int q_offset, int k_offset, int causal,
+                          float scale, cudaStream_t st) {
+  if (d % kPanelCols != 0) return cudaErrorInvalidValue;
+  WideArgs w;
+  if (!hopper_args<E>(&w.h, q, k, v, m, l, o, n, s_q, s_k, d, kWideTK,
+                      q_offset, k_offset, causal, scale))
+    return cudaErrorInvalidValue;
+  w.d = d;
+  w.panels = d / kPanelCols;
+  const int full = d / kWideSlab, rest = d % kWideSlab;
+  cudaError_t err = launch_wide<E, kWideSlab>(w, 0, full, st);
+  if (err != cudaSuccess || rest == 0) return err;
+  if (rest <= 64) return launch_wide<E, 64>(w, full, 1, st);
+  if (rest <= 128) return launch_wide<E, 128>(w, full, 1, st);
+  return launch_wide<E, kWideSlab>(w, full, 1, st);
+}
+
+// The tensor-core kernel at a compiled head size, or past 256.
 template <class E>
 cudaError_t launch_tc_d(int d, const void* q, const void* k, const void* v,
                         float* m, float* l, float* o, int n, int s_q,
@@ -966,6 +1515,9 @@ cudaError_t launch_tc_d(int d, const void* q, const void* k, const void* v,
   if (d == 256)
     return launch_tc<E, 256>(q, k, v, m, l, o, n, s_q, s_k, q_offset,
                              k_offset, causal, scale, st);
+  if (d > 256)
+    return launch_wide_d<E>(d, q, k, v, m, l, o, n, s_q, s_k, q_offset,
+                            k_offset, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -980,14 +1532,32 @@ cudaError_t launch_f32(const Args& a, unsigned blocks, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// float32 past d = 256 (d a multiple of 64): every slab in one launch.
+cudaError_t launch_f32_wide(const Args& a, int n, int d, cudaStream_t st) {
+  if (d % kF32Chunk != 0) return cudaErrorInvalidValue;
+  WideF32Args w;
+  w.a = a;
+  w.d = d;
+  w.n_slabs = (d + kWideSlab - 1) / kWideSlab;
+  const long long blocks = (long long)a.n_q_tiles * n * w.n_slabs;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_f32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemF32Wide);
+  if (err != cudaSuccess) return err;
+  attention_f32_wide<<<(unsigned)blocks, kF32Threads, kSmemF32Wide, st>>>(w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Partials of q [n, s_q, d] against k, v [n, s_k, d] (contiguous, rows
 // 16-byte aligned) into m, l [n, s_q] and o [n, s_q, d] (float32).
-// dtype 0 = float32, 1 = bfloat16, 2 = float16; d is 64, 128 or 256 (the
-// wrapper pads other head sizes).  Returns cudaGetLastError() (0 on
-// success; cudaErrorInvalidValue for another dtype or d, or when a
-// tensor map cannot be built); queued on `stream`, not synchronised.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16; d is 64, 128, 256 or a
+// multiple of 64 past 256 (the wrapper pads other head sizes).  Returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for another
+// dtype or d, or when a tensor map cannot be built); queued on `stream`,
+// not synchronised.  Past d = 256 a 16-bit call may be two launches.
 extern "C" int sr_block_attention(const void* q, const void* k,
                                   const void* v, void* m, void* l, void* o,
                                   int n, int s_q, int s_k, int d,
@@ -1024,5 +1594,6 @@ extern "C" int sr_block_attention(const void* q, const void* k,
   if (d == 64) return launch_f32<64>(a, (unsigned)blocks, st);
   if (d == 128) return launch_f32<128>(a, (unsigned)blocks, st);
   if (d == 256) return launch_f32<256>(a, (unsigned)blocks, st);
+  if (d > 256) return launch_f32_wide(a, n, d, st);
   return cudaErrorInvalidValue;
 }

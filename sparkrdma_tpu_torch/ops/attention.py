@@ -21,11 +21,13 @@ On a CUDA tensor :func:`block_attention` launches the hand-written
 kernel of ``csrc/block_attention.cu`` (or raises); on a CPU tensor it
 runs :func:`block_attention_plain`, which is also what the kernel is
 held against on the card.  The kernel takes float32, bfloat16 and
-float16 and is compiled at the head sizes :data:`D_HEADS`; any other
-``d_head`` up to the largest of them runs the kernel at the next
-compiled size on zero-padded q, k and v (:func:`pad_head_dim`), which
-is exact.  A larger ``d_head`` raises ``NotImplementedError``.  Both
-follow the Pallas kernel's arithmetic: the scale multiplies the float32
+float16 at every ``d_head``: it is compiled at the head sizes
+:data:`D_HEADS`, and past the largest of them it runs any multiple of
+:data:`WIDE_ALIGN` as slabs of at most 256 columns of o, each
+recomputing the scores over all of d.  Any other ``d_head`` runs the
+kernel at the next such size on zero-padded q, k and v
+(:func:`pad_head_dim`), which is exact.  Both follow the Pallas
+kernel's arithmetic: the scale multiplies the float32
 product, and ``p`` is cast to v's dtype before the ``p @ v`` product,
 accumulated in float32.
 """
@@ -43,8 +45,7 @@ NEG_INF = -1e30
 BLOCK_Q = 128   # query rows per CUDA block (16-bit kernel)
 BLOCK_K = 128   # keys per step of its loop over the K/V block (64 at d 256)
 D_HEADS = (64, 128, 256)  # the head sizes the kernel is compiled at
-KERNEL_ITEM = ("ROADMAP.md, 'Next, in order', item 3: kernel 3 at "
-               "d_head > 256")
+WIDE_ALIGN = 64  # past D_HEADS[-1] the kernel runs multiples of this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 LAUNCHES = _build.LaunchCounter("block_attention")
@@ -93,21 +94,19 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_d_head(d: int) -> int:
-    """The compiled head size that runs ``d``: the smallest of
-    :data:`D_HEADS` at or above it.  Past the largest, raises
-    ``NotImplementedError``."""
+    """The head size the kernel runs ``d`` at: the smallest of
+    :data:`D_HEADS` at or above it, and past the largest ``d`` rounded
+    up to a multiple of :data:`WIDE_ALIGN` (the slab kernels)."""
     for c in D_HEADS:
         if d <= c:
             return c
-    raise NotImplementedError(
-        f"d_head={d}: the kernel takes d_head up to {D_HEADS[-1]} "
-        f"({KERNEL_ITEM})")
+    return -(-d // WIDE_ALIGN) * WIDE_ALIGN
 
 
 def pad_head_dim(inner, q, k, v, q_offset, k_offset, causal,
                  scale: float) -> Partials:
     """``inner(q, k, v, q_offset, k_offset, causal, scale)`` at the
-    compiled head size :func:`kernel_d_head` of q's ``d``: q, k and v
+    head size :func:`kernel_d_head` of q's ``d``: q, k and v
     zero-padded in the last dimension, ``o`` cut back to ``d``.  Exact:
     zero columns of q and k add 0 to every score, and zero columns of v
     give only the ``o`` columns that are cut off.  ``scale`` is the
@@ -122,7 +121,8 @@ def pad_head_dim(inner, q, k, v, q_offset, k_offset, causal,
 
 
 def _attention_cuda(q, k, v, q_offset, k_offset, causal, scale) -> Partials:
-    """One launch of the kernel at a compiled head size."""
+    """One call of the kernel at a head size it runs (past 256 in
+    bfloat16 and float16, a narrower last slab is a second launch)."""
     d = q.shape[-1]
     q3, k3, v3 = (_rows16(x.reshape(-1, x.shape[-2], d)) for x in (q, k, v))
     n, s_q, s_k = q3.shape[0], q3.shape[1], k3.shape[1]
@@ -170,11 +170,11 @@ def block_attention(
     (BLOCK_Q, BLOCK_K) tile and the plain version takes no tile, as the
     JAX ``xla`` path does (a tile changes no result beyond the order of
     summation).  A non-positive size raises ``ValueError``.  CUDA
-    tensors (float32, bfloat16 or float16, any d_head up to 256) run the
-    kernel, at a padded head size where d_head is not one of
-    :data:`D_HEADS` (:func:`pad_head_dim`); CPU tensors run
+    tensors (float32, bfloat16 or float16, any d_head) run the kernel,
+    at a padded head size where :func:`kernel_d_head` differs from
+    d_head (:func:`pad_head_dim`); CPU tensors run
     :func:`block_attention_plain`.  Another dtype on CUDA raises
-    ``ValueError``, and d_head > 256 ``NotImplementedError``.
+    ``ValueError``.
     """
     _check(q, k, v)
     if block_q < 1 or block_k < 1:

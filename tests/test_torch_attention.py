@@ -358,9 +358,51 @@ def test_padding_path_equals_the_unpadded_plain_version(dt):
 
 def test_kernel_head_sizes():
     """Each d_head up to 256 runs at the smallest compiled size at or
-    above it; past 256 the kernel refuses, naming the ROADMAP item."""
+    above it; past 256 the kernel runs every multiple of 64 (its slab
+    kernels), so d_head rounds up to one."""
     assert [tattn.kernel_d_head(d) for d in (1, 32, 64, 65, 96, 128, 129,
                                              200, 256)] == \
         [64, 64, 64, 128, 128, 128, 256, 256, 256]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
-        tattn.kernel_d_head(257)
+    assert [tattn.kernel_d_head(d) for d in (257, 300, 320, 512, 513, 576,
+                                             1000, 2048)] == \
+        [320, 320, 320, 512, 576, 576, 1024, 2048]
+
+
+# -- past d_head 256 -----------------------------------------------------------
+
+WIDE_DIMS = [300, 320, 512, 576]
+WIDE_CASES = ("ragged_causal", "straddle", "masked")
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_head_sizes_match_jax(d, dt, case, impl):
+    """d 320, 512 and 576 (what the CUDA kernel runs as slabs of o: one
+    full slab and a 64-column one, two full ones, two and a 64-column
+    one) and d 300 (padded to 320) through the padding and dispatch
+    helper around the plain version, in the three dtypes, against the
+    JAX function, whose Pallas kernel takes any d."""
+    s_q, s_k, qo, ko, causal = HEAD_CASES[case]
+    q, k, v = _qkv(None, s_q, s_k, d, seed=d + len(case) + len(dt))
+    kw = dict(q_offset=qo, k_offset=ko, causal=causal)
+    tdt, jdt = DTYPES[dt]
+    seen = []
+
+    def inner(*args):
+        seen.append(args[0].shape[-1])
+        return tattn.block_attention_plain(*args)
+
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    got = tattn.pad_head_dim(inner, tq, tk, tv, qo, ko, causal,
+                             1 / np.sqrt(d))
+    assert seen == [tattn.kernel_d_head(d)]
+    assert got[2].shape == (s_q, d)
+    for g, w in zip(got, _port(q, k, v, dtype=tdt, **kw)):
+        assert torch.equal(g, w)
+    if case == "masked":
+        assert bool((got[0] == tattn.NEG_INF).all())
+        assert bool((got[1] == s_k).all())
+    rounding = None if dt == "float32" else _p_rounding(q, k, v, dt, **kw)
+    _close(got, _jax(q, k, v, impl, jdtype=jdt, **kw), rounding)

@@ -435,12 +435,38 @@ def test_attention_kernel_edges_on_card(cuda_device, case, dtype, d):
 
 @pytest.mark.gpu
 def test_attention_kernel_refuses_other_d_head_on_card(cuda_device):
-    """Every d_head up to 256 runs (padded where it is not compiled);
-    past 256 the kernel refuses, naming the ROADMAP item."""
+    """No d_head is refused: 257 runs the kernel (padded to 320, its
+    slab kernel) in every dtype, with o at 257 columns."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in HALF + [torch.float32]:
-        x = torch.zeros(64, 257, dtype=dtype, device=cuda_device)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.block_attention(x, x, x)
+        q, k, v = _qkv_cuda(1, 64, 96, 257, dtype, cuda_device, 257)
+        _build.reset_launch_counts()
+        got = tattn.block_attention(q, k, v, 0, 0, True)
+        assert _build.launch_counts()["block_attention"] == 1
+        assert got[2].shape == (1, 64, 257)
+        want = tattn.block_attention_plain(q, k, v, 0, 0, True,
+                                           1.0 / 257 ** 0.5)
+        _close_partials(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [320, 512, 576])
+@pytest.mark.parametrize("dtype", HALF + [torch.float32])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_attention_kernel_wide_d_head_on_card(cuda_device, case, dtype, d):
+    """Past d_head 256 (slabs of o: 256 + 64, 256 + 256, 2 x 256 + 64
+    columns), causal, with ragged, straddling and fully masked rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, s_q, s_k, qo, ko = case
+    q, k, v = _qkv_cuda(n, s_q, s_k, d, dtype, cuda_device, s_q + s_k + d)
+    _build.reset_launch_counts()
+    got = tattn.block_attention(q, k, v, qo, ko, True)
+    assert _build.launch_counts()["block_attention"] == 1
+    want = tattn.block_attention_plain(q, k, v, qo, ko, True, 1.0 / d ** 0.5)
+    _close_partials(got, want, dtype)
+    dead = (qo + torch.arange(s_q, device=cuda_device)) < ko
+    assert bool((got[0][:, dead] == tattn.NEG_INF).all())
+    assert bool((got[1][:, dead] == s_k).all())
 
 
 @pytest.mark.gpu
@@ -457,3 +483,87 @@ def test_attention_kernel_pads_to_a_compiled_d_head_on_card(cuda_device,
     assert got[2].shape == (2, 130, d)
     want = tattn.block_attention_plain(q, k, v, 0, 0, True, 1.0 / d ** 0.5)
     _close_partials(got, want, torch.float16)
+
+
+# -- the byte data plane on the card (D = 1) ------------------------------------
+
+
+def _byte_case(seed, n):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, n, dtype=np.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 1, 2, 3])
+def test_byte_plane_exchange_padded_on_card(cuda_device, window):
+    """A pinned source row through the card, full shot and windowed:
+    the received stream is the sent one, and the views hold pinned host
+    memory the host reads only after the copies landed."""
+    from sparkrdma_tpu_torch.memory.device_arena import DeviceStagingBridge
+    from sparkrdma_tpu_torch.parallel.exchange import (
+        PaddedSourceRow,
+        TileExchange,
+    )
+
+    n = 5 * (1 << 16) + 333
+    ex = TileExchange(device=cuda_device, tile_bytes=1 << 16,
+                      verify_integrity=True)
+    lengths = np.array([[n]], np.int64)
+    cols = ex.plan(lengths).total_cols
+    row = DeviceStagingBridge(cuda_device).alloc_row(cols)
+    assert torch.from_numpy(row).is_pinned()
+    row[:n] = _byte_case(window, n)
+    row[n:] = 0
+    landed = []
+    out = ex.exchange_padded(lengths, {0: PaddedSourceRow(row, cols)},
+                             window_rounds=window,
+                             on_round=lambda r, lo, hi, rows:
+                             landed.append((r, lo, hi)))
+    assert np.array_equal(out[0][0], row[:n])
+    assert landed[-1][2] == cols
+    assert len(landed) == (1 if window == 0 else ex.plan(lengths).rounds)
+    if window == 0:
+        assert out[0].keepalive.is_pinned()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 2, 4])
+def test_byte_plane_host_staged_rounds_on_card(cuda_device, window):
+    from sparkrdma_tpu_torch.parallel.exchange import TileExchange
+
+    data = _byte_case(10 + window, 9 * 4096 + 17)
+    ex = TileExchange(device=cuda_device, tile_bytes=4096,
+                      max_rounds_in_flight=window, verify_integrity=True)
+    lengths = np.array([[data.size]], np.int64)
+    assert np.array_equal(ex.exchange_into(lengths, {0: data})[0][0], data)
+    assert ex.exchange_bytes([[data.tobytes()]])[0][0] == data.tobytes()
+    assert ex.stats()["rounds_executed"] == 2 * ex.plan(lengths).rounds
+
+
+@pytest.mark.gpu
+def test_byte_plane_a2a_and_arena_on_card(cuda_device):
+    from sparkrdma_tpu_torch.memory.arena import ArenaManager
+    from sparkrdma_tpu_torch.memory.device_arena import DeviceArena
+    from sparkrdma_tpu_torch.parallel.exchange import TileExchange
+    from sparkrdma_tpu_torch.utils.types import BlockLocation
+
+    ex = TileExchange(device=cuda_device)
+    x = torch.from_numpy(_byte_case(1, 4096).reshape(1, 4096))
+    y = ex.a2a(x)
+    assert y.is_cuda and torch.equal(y.cpu(), x)
+    arena = DeviceArena(1 << 20, device=cuda_device)
+    assert arena.array.is_cuda
+    data = _byte_case(2, 300_000)
+    span = arena.alloc(data.size)
+    arena.write(span, data)  # asynchronous, from a pinned buffer
+    assert arena.read(span.offset, data.size) == data.tobytes()
+    mgr = ArenaManager()
+    seg = mgr.register_arena_span(span)
+    dev_seg = mgr.register(torch.from_numpy(data).to(cuda_device))
+    assert mgr.read_block(BlockLocation(7, 1000, seg.mkey)) == \
+        data[7:1007].tobytes()
+    assert [bytes(b) for b in mgr.read_blocks(
+        [BlockLocation(o, 50, dev_seg.mkey) for o in (0, 99_000, 5)])] == \
+        [data[o:o + 50].tobytes() for o in (0, 99_000, 5)]
+    mgr.stop()
+    assert arena.stats()["allocated_bytes"] == 0

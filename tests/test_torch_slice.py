@@ -489,7 +489,17 @@ def test_import_loads_neither_jax_nor_reference():
         "sparkrdma_tpu_torch.models.join_aggregate, "
         "sparkrdma_tpu_torch.models.topk, "
         "sparkrdma_tpu_torch.models.external_sort, "
-        "sparkrdma_tpu_torch.models.ring_attention\n"
+        "sparkrdma_tpu_torch.models.ring_attention, "
+        "sparkrdma_tpu_torch.parallel.exchange, "
+        "sparkrdma_tpu_torch.memory.device_arena, "
+        "sparkrdma_tpu_torch.memory.arena, "
+        "sparkrdma_tpu_torch.metrics, sparkrdma_tpu_torch.metrics.export, "
+        "sparkrdma_tpu_torch.utils.statemachine, "
+        "sparkrdma_tpu_torch.utils.dbglock, "
+        "sparkrdma_tpu_torch.utils.types, "
+        "sparkrdma_tpu_torch.utils.ledger, "
+        "sparkrdma_tpu_torch.transport, "
+        "sparkrdma_tpu_torch.transport.channel\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sparkrdma_tpu' "
         "or m.startswith('sparkrdma_tpu.'))\n"
