@@ -92,6 +92,18 @@ ARENA_SPAN = 4 << 20
 BYTE_REPS = 3               # timed calls of each byte-plane path
 HOST_LINK_BYTES_PER_S = 64e9  # PCIe 5.0 x16, each direction
 MULTI_PAIR_BYTES = 64 << 20   # multi_gpu byte plane, per (source, dest)
+# the record-level shuffle on the host read plane (TpuShuffleContext over
+# LoopbackNetwork, map outputs staged in the card's memory).  Config 2:
+# benchmarks/bench_reduce_loopback.py:44-45,760-766 (reduceByKey of
+# (int, 1) records, 2 executors, 4 slices, 4 partitions); config 1:
+# benchmarks/bench_local_baseline.py:33-36,40-56,72-90 (columnar
+# groupByKey of 64 B payloads over 512 keys, narrow and wide-range keys,
+# 4 executors, 8 slices, 8 partitions) at the 1 GB it states
+REC2_N, REC2_KEYS, REC2_EXEC, REC2_SLICES, REC2_PARTS = (
+    300_000, 1024, 2, 4, 4)
+REC1_N, REC1_PAYLOAD, REC1_KEYS = 1 << 24, 64, 512
+REC1_EXEC, REC1_SLICES, REC1_PARTS, REC1_TASKS = 4, 8, 8, 2
+REC_REPS = 2                # timed jobs of each (config, staging) pair
 # float32 "add" sums in another order in the kernel (sequential per
 # thread, then a tree) than in the log-step plain version; segments
 # average 1000 values of magnitude <= 1, so the two sums differ by far
@@ -175,13 +187,15 @@ def bound_ms(n_bytes: float, n_int32_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile(torch, label: str, fn, top: int = 6) -> None:
+def profile(torch, label: str, fn, top: int = 6, warm: bool = True) -> None:
     """One call of ``fn`` under torch.profiler: device time by kernel
     and the device's idle share of the profiled wall time.  Prints
-    "not measured" where the profiler reports no device time."""
+    "not measured" where the profiler reports no device time.  ``warm``
+    first calls ``fn`` once outside the profile."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with tprofile(activities=acts) as prof:
@@ -280,9 +294,27 @@ def phase_build(_build):
     256, and the slab kernel at 64, 128 and 256 columns, with the q
     tile resident or streamed) runs on wgmma
     (HGMMA) fed by TMA (UTMALDG), with no mma.sync (HMMA) left."""
+    import threading
+
+    from sparkrdma_tpu_torch.memory import staging
+
+    # the native staging library (g++, host code of the record plane)
+    # builds beside nvcc
+    st_err = []
+
+    def build_staging():
+        try:
+            staging._lib()
+        except Exception as e:  # reported and failed below
+            st_err.append(e)
+
+    st = threading.Thread(target=build_staging)
     t0 = time.monotonic()
+    st.start()
     _build.load()
     secs = time.monotonic() - t0
+    st.join()
+    require(not st_err, f"staging library build failed: {st_err}")
     for src, name, used, spill in _ptxas_rows(_build.build_log()):
         if src in ("flagged_scan.cu", "bitonic_block_sort.cu",
                    "block_attention.cu"):
@@ -307,7 +339,11 @@ def phase_build(_build):
         require(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                 f"{name}: SASS {c} lacks wgmma or TMA, or has mma.sync")
     phase("build", seconds=secs, sources=[p.name for p in _build.sources()],
-          sass_attention_tc=sass, wgmma_serialised_notes=len(serial))
+          sass_attention_tc=sass, wgmma_serialised_notes=len(serial),
+          staging_seconds=staging.BUILD_INFO.get("seconds"),
+          staging_cached=staging.BUILD_INFO["cached"],
+          staging_source=str(staging.SOURCE.relative_to(
+              pathlib.Path(__file__).resolve().parent)))
 
 
 def _adversarial(torch, case, n, gen, dev):
@@ -1209,6 +1245,269 @@ def phase_byte_plane(torch, dev):
     del arena, data
 
 
+def _counters():
+    """The record plane's always-on counters, summed over labels:
+    staged bytes and segments, device-to-host read bytes, and the
+    commits that fell back to host memory, by reason."""
+    from sparkrdma_tpu_torch.metrics import get_registry
+
+    got = {"h2d_bytes": 0, "d2h_bytes": 0, "device_segments": 0,
+           "pool_exhausted": 0, "arena_full": 0}
+    names = {"staging_h2d_bytes_total": "h2d_bytes",
+             "arena_device_read_bytes_total": "d2h_bytes",
+             "staging_device_segments_total": "device_segments"}
+    for c in get_registry().snapshot()["counters"]:
+        if c["name"] in names:
+            got[names[c["name"]]] += c["value"]
+        elif c["name"] == "staging_commit_fallbacks_total":
+            got[c["labels"]["reason"]] += c["value"]
+    return got
+
+
+def _record_job(torch, dev, stage, make_ctx, job, check, reps=REC_REPS,
+                label=None):
+    """One record-plane configuration on a fresh context: a checked
+    first job, then ``reps`` timed jobs (host clock); with ``label``
+    one more job runs under the profiler.  Returns the line's fields:
+    times, the staging counters' deltas, every staged segment's
+    placement, the pools' kind and the device memory before, at peak and
+    after ``stop()``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _counters()
+    ctx = make_ctx(stage)
+    placed = []
+    for ex in ctx.executors:
+        stage_fn = ex.resolver._to_device
+
+        def spy(host, stage_fn=stage_fn):
+            t = stage_fn(host)
+            placed.append(bool(t.is_cuda))
+            return t
+
+        ex.resolver._to_device = spy
+    try:
+        require(all(ex.staging_pool.is_native for ex in ctx.executors),
+                "an executor's staging pool is not native")
+        t0 = time.monotonic()
+        check(job(ctx))
+        first_s = time.monotonic() - t0
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            job(ctx)
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t0)
+        if label:
+            profile(torch, label, lambda: job(ctx), warm=False)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ctx.stop()
+    del ctx
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    c1 = _counters()
+    delta = {k: c1[k] - c0[k] for k in c0}
+    jobs = 1 + reps + (1 if label else 0)
+    if stage:
+        require(placed and all(placed),
+                f"staged segments not all on the card: {placed.count(False)}"
+                f" of {len(placed)} on the host")
+        require(delta["device_segments"] == len(placed),
+                "segment counter disagrees with the staged segments")
+        require(delta["h2d_bytes"] > 0 and delta["d2h_bytes"] > 0,
+                f"staged run copied nothing: {delta}")
+    else:
+        require(not placed and delta["h2d_bytes"] == 0,
+                f"host run staged to the device: {delta}")
+    require(delta["pool_exhausted"] == 0 and delta["arena_full"] == 0,
+            f"commits fell back to host memory: {delta}")
+    require(after == base,
+            f"device memory {after} B after stop(), {base} B before")
+    return dict(first_s=first_s, seconds=secs, seconds_min=min(secs),
+                jobs=jobs, h2d_bytes_per_job=delta["h2d_bytes"] / jobs,
+                d2h_bytes_per_job=delta["d2h_bytes"] / jobs,
+                device_segments_per_job=delta["device_segments"] / jobs,
+                segments_on_card=placed.count(True),
+                segments_on_host=placed.count(False),
+                fallbacks={"pool_exhausted": delta["pool_exhausted"],
+                           "arena_full": delta["arena_full"]},
+                max_memory_allocated=peak, memory_allocated_before=base,
+                memory_allocated_after_stop=after)
+
+
+def _record_line(torch, dev, config, payload_bytes, n, staged, host,
+                 **fields):
+    """One ``record_plane`` line: the staged run beside the same job
+    with map outputs on the host, the host-link bound (the payload, and
+    the staged bytes with keys and framing, once each way over 64 GB/s)
+    and pinned and pageable copies of the staged bytes."""
+    nb = int(staged["h2d_bytes_per_job"])
+    copies = _copy_ms(torch, nb, dev)
+    phase("record_plane", config=config, n_records=n,
+          payload_bytes=payload_bytes, **fields,
+          seconds=staged["seconds_min"], seconds_host=host["seconds_min"],
+          mrec_per_s=n / staged["seconds_min"] / 1e6,
+          mrec_per_s_host=n / host["seconds_min"] / 1e6,
+          gb_per_s=payload_bytes / staged["seconds_min"] / 1e9,
+          gb_per_s_host=payload_bytes / host["seconds_min"] / 1e9,
+          staged=staged, host=host,
+          bound_ms_per_direction=payload_bytes / HOST_LINK_BYTES_PER_S * 1e3,
+          bound_by="payload bytes each way over the host link (64 GB/s)",
+          staged_bytes_bound_ms_per_direction=nb / HOST_LINK_BYTES_PER_S
+          * 1e3, copies_of_staged_bytes=copies, correct=True)
+
+
+def phase_record_plane(torch, dev):
+    """The record-level shuffle through ``TpuShuffleContext`` on the host
+    read plane: write, commit (each map output copied into a uint8
+    tensor on the card), publish, resolve, fetch (device-to-host reads
+    over ``LoopbackNetwork``) and read.  Config 2: reduceByKey of
+    300 000 (int, 1) records over 1024 keys, checked against a Python
+    dict sum.  Config 1: columnar groupByKey of 2^24 records of 64 B
+    over 512 keys, narrow and wide-range, checked against numpy (group
+    sizes by ``np.bincount``, each group's payload by an
+    order-independent sum of its 64-bit words).  Each runs with map
+    outputs staged on the card and, beside it, kept on the host."""
+    import numpy as np
+
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+
+    rng = np.random.default_rng(1)
+    records = [(int(k), 1) for k in rng.integers(0, REC2_KEYS, REC2_N)]
+    want = {}
+    for k, v in records:
+        want[k] = want.get(k, 0) + v
+
+    def c2_ctx(stage):
+        return TpuShuffleContext(num_executors=REC2_EXEC, device=dev,
+                                 stage_to_device=stage)
+
+    def c2_job(ctx):
+        return ctx.parallelize(records, num_slices=REC2_SLICES) \
+            .reduce_by_key(lambda a, b: a + b,
+                           num_partitions=REC2_PARTS).collect()
+
+    def c2_check(res):
+        got = dict(res)
+        require(len(res) == len(got) == REC2_KEYS and got == want
+                and sum(got.values()) == REC2_N,
+                "config 2: reduceByKey differs from the dict sum")
+
+    staged = _record_job(torch, dev, True, c2_ctx, c2_job, c2_check,
+                         label="record_plane_config2")
+    host = _record_job(torch, dev, False, c2_ctx, c2_job, c2_check)
+    _record_line(torch, dev, "2: reduceByKey loopback", REC2_N * 16,
+                 REC2_N, staged, host, payload="2 x int64 per record",
+                 keys=REC2_KEYS, executors=REC2_EXEC,
+                 slices=REC2_SLICES, partitions=REC2_PARTS,
+                 serializer="pickle")
+    del records
+
+    rng = np.random.default_rng(0)
+    narrow = rng.integers(0, REC1_KEYS, REC1_N).astype(np.int64)
+    choices = rng.integers(0, 1 << 60, REC1_KEYS, dtype=np.int64)
+    wide = choices[rng.integers(0, REC1_KEYS, REC1_N)]
+    vals = np.frombuffer(np.random.default_rng(1).bytes(
+        REC1_N * REC1_PAYLOAD), dtype=f"S{REC1_PAYLOAD}")
+    words = vals.view(np.uint64).reshape(REC1_N, REC1_PAYLOAD // 8)
+    conf = {"spark.shuffle.tpu.serializer": "columnar"}
+
+    def c1_ctx(stage):
+        return TpuShuffleContext(num_executors=REC1_EXEC,
+                                 conf=TpuShuffleConf(dict(conf)),
+                                 tasks_per_executor=REC1_TASKS, device=dev,
+                                 stage_to_device=stage)
+
+    for shape, keys in (("narrow", narrow), ("wide-range", wide)):
+        order = np.argsort(keys, kind="stable")
+        uk, heads, sizes = np.unique(keys[order], return_index=True,
+                                     return_counts=True)
+        sums = np.add.reduceat(words[order], heads, axis=0)
+        del order
+        oracle = {int(k): (int(s), row.tobytes())
+                  for k, s, row in zip(uk, sizes, sums)}
+
+        def c1_job(ctx, keys=keys):
+            return ctx.parallelize_columns(keys, vals,
+                                           num_slices=REC1_SLICES) \
+                .group_by_key(num_partitions=REC1_PARTS).collect()
+
+        def c1_check(res, oracle=oracle, keys=keys):
+            require(len(res) == REC1_KEYS == len(oracle),
+                    f"config 1 {shape}: {len(res)} groups")
+            for k, grp in res:
+                g = np.ascontiguousarray(grp).view(np.uint64) \
+                    .reshape(-1, REC1_PAYLOAD // 8)
+                size, s = oracle[int(k)]
+                require(g.shape[0] == size,
+                        f"config 1 {shape}: group {k} size {g.shape[0]}")
+                require(g.sum(axis=0, dtype=np.uint64).tobytes() == s,
+                        f"config 1 {shape}: group {k} payload differs")
+            if shape == "narrow":
+                require(np.array_equal(np.bincount(keys, minlength=REC1_KEYS),
+                                       np.array([oracle[k][0] for k in
+                                                 range(REC1_KEYS)])),
+                        "config 1: np.bincount disagrees")
+
+        staged = _record_job(torch, dev, True, c1_ctx, c1_job, c1_check,
+                             label=f"record_plane_config1_{shape}")
+        host = _record_job(torch, dev, False, c1_ctx, c1_job, c1_check)
+        _record_line(torch, dev, f"1: groupByKey columnar, {shape} keys",
+                     REC1_N * REC1_PAYLOAD, REC1_N, staged, host,
+                     key_bytes=REC1_N * 8, keys=REC1_KEYS,
+                     executors=REC1_EXEC, slices=REC1_SLICES,
+                     partitions=REC1_PARTS, serializer="columnar")
+        del oracle, sums
+
+
+def phase_device_workloads(torch, _build, gen, dev):
+    """``ctx.device_count`` and ``ctx.device_aggregate`` on KEYED_N Zipf
+    keys through the shuffle context: each equals the direct
+    ``WordCounter`` / ``KeyedAggregator`` result, and the flagged scan
+    launched.  Returns the scan's launches."""
+    from sparkrdma_tpu_torch import KeyedAggregator, WordCounter
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+
+    keys = zipf_keys(torch, KEYED_N, gen, dev).cpu().numpy()
+    vals = torch.randint(-1000, 1000, (KEYED_N,), generator=gen, device=dev,
+                         dtype=torch.int32).cpu().numpy()
+    want_c = WordCounter(device=dev).count(keys)
+    want_a = KeyedAggregator(device=dev).aggregate(keys, vals)
+    with TpuShuffleContext(num_executors=1, device=dev) as ctx:
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        got_c = ctx.device_count(keys)
+        torch.cuda.synchronize()
+        count_s = time.monotonic() - t0
+        launch_c = _build.launch_counts()["flagged_scan"]
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        got_a = ctx.device_aggregate(keys, vals)
+        torch.cuda.synchronize()
+        agg_s = time.monotonic() - t0
+        launch_a = _build.launch_counts()["flagged_scan"]
+    require(got_c == want_c and sum(got_c.values()) == KEYED_N,
+            "ctx.device_count differs from WordCounter.count")
+    require(got_a == want_a, "ctx.device_aggregate differs from "
+            "KeyedAggregator.aggregate")
+    require(launch_c > 0 and launch_a > 0,
+            f"ctx.device_* launched the flagged scan {launch_c}, "
+            f"{launch_a} times")
+    phase("device_workloads", n=KEYED_N, vocab=VOCAB, zipf_s=ZIPF_S,
+          distinct=len(got_c), device_count_s=count_s,
+          device_aggregate_s=agg_s,
+          flagged_scan_launches=[launch_c, launch_a], correct=True)
+    return launch_c + launch_a
+
+
 def _pattern(torch, s, d, n, dev):
     """Stream ``s -> d`` of the multi-GPU byte plane: ``n`` bytes of a
     hash of (s, d, position), made on the device."""
@@ -1712,15 +2011,16 @@ def _lengths(torch, group, n):
 
 def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim, n_ext,
                     pair_bytes=MULTI_PAIR_BYTES, attn_seq=ATTN_S):
-    """TeraSort (``n_sort`` records per rank), WordCount (``n_sort`` Zipf
-    keys per rank), the hash join (``n_fact`` fact and ``n_dim``
-    dimension rows per rank) and the external sort (``n_ext`` records per
-    rank in chunks) through their host drivers on this rank's shard of
-    one seeded input, which every rank draws whole and checks its share
-    of against a one-card oracle; the byte plane at ``pair_bytes`` per
-    pair against the transposed streams; ring and Ulysses attention over
-    ``attn_seq`` against the one-card result.  Returns the host seconds
-    of each call."""
+    """TeraSort (``n_sort`` records per rank), WordCount, the keyed
+    aggregate and grouped top-k (``n_sort`` Zipf keys per rank), the hash
+    join, the broadcast join and the fused join+aggregate (``n_fact``
+    fact and ``n_dim`` dimension rows per rank) and the external sort
+    (``n_ext`` records per rank in chunks) through their host drivers
+    on this rank's shard of one seeded input, which every rank draws
+    whole and checks its share of against a one-card oracle; the byte
+    plane at ``pair_bytes`` per pair against the transposed streams;
+    ring and Ulysses attention over ``attn_seq`` against the one-card
+    result.  Returns the host seconds of each call."""
     import numpy as np
 
     from sparkrdma_tpu_torch import HashJoiner, TeraSorter, WordCounter
@@ -1786,11 +2086,75 @@ def multi_gpu_cases(torch, group, n_sort, n_fact, n_dim, n_ext,
     require(np.array_equal(jd, dv[jk]), f"rank {rank}: join values differ")
     require(sum(_lengths(torch, group, len(jk)))
             == int((fk < n_dim * world).sum()), "multi-GPU join row count")
+    _multi_gpu_sql(torch, group, zk, n_sort, fk, fv, dk, dv, fm, timed)
 
     _multi_gpu_external_sort(torch, group, n_ext, timed)
     _multi_gpu_byte_plane(torch, group, pair_bytes, timed)
     _multi_gpu_attention(torch, group, attn_seq, timed)
     return times
+
+
+def _multi_gpu_sql(torch, group, zk, n_sort, fk, fv, dk, dv, fm, timed):
+    """The keyed aggregate and grouped top-k on this rank's share of the
+    Zipf keys, the broadcast join and the fused join+aggregate on its
+    share of the fact rows (the whole dimension table on every rank),
+    each against the same model on one card over the whole input."""
+    import numpy as np
+
+    from sparkrdma_tpu_torch import (
+        BroadcastJoinAggregator,
+        BroadcastJoiner,
+        GroupedTopK,
+        KeyedAggregator,
+    )
+
+    rank, world, dev = group.rank, group.size, group.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    zv = torch.randint(-1000, 1000, (zk.numel(),), generator=gen,
+                       device=dev, dtype=torch.int32).cpu().numpy()
+    zk = zk.cpu().numpy()
+    mine = slice(rank * n_sort, (rank + 1) * n_sort)
+
+    def owned_match(got, want, what):
+        require(all(want.get(k) == v for k, v in got.items()),
+                f"rank {rank}: {what} differs from the one-card result")
+        require(sum(_lengths(torch, group, len(got))) == len(want),
+                f"multi-GPU {what}: keys missing or owned twice")
+
+    got = timed("aggregate_s", lambda: KeyedAggregator(group=group)
+                .aggregate(zk[mine], zv[mine]))
+    owned_match(got, KeyedAggregator(device=dev).aggregate(zk, zv),
+                "keyed aggregate")
+    got = timed("topk_s", lambda: GroupedTopK(group=group).top_k(
+        zk[mine], zv[mine], TOPK_K))
+    owned_match(got, GroupedTopK(device=dev).top_k(zk, zv, TOPK_K),
+                "grouped top-k")
+    del zk, zv
+
+    def rows(res):
+        return sorted(zip(*(np.asarray(c).tolist() for c in res)))
+
+    got = timed("broadcast_join_s", lambda: BroadcastJoiner(group=group)
+                .join(fk[fm], fv[fm], dk, dv))
+    require(rows(got) == rows(BroadcastJoiner(device=dev).join(
+        fk[fm], fv[fm], dk, dv)),
+        f"rank {rank}: broadcast join differs from the one-card join")
+    require(sum(_lengths(torch, group, len(got[0])))
+            == int((fk < len(dk)).sum()), "multi-GPU broadcast join rows")
+    got = timed("join_aggregate_s", lambda: BroadcastJoinAggregator(
+        group=group).join_aggregate(fk[fm], fv[fm], dk, dv))
+    want = BroadcastJoinAggregator(device=dev).join_aggregate(fk, fv, dk, dv)
+
+    def wrapped(res):
+        # one card sums in int32 and wraps; at D > 1 the host merge of
+        # the ranks' partials adds unbounded ints (as the JAX package
+        # does): compare the sums modulo 2^32
+        return {k: (_wrap32(s.sum), s.count, s.min, s.max)
+                for k, s in res.items()}
+
+    require(wrapped(got) == wrapped(want), f"rank {rank}: fused "
+            "join+aggregate differs from the one-card result")
 
 
 def _multi_gpu_external_sort(torch, group, n_ext, timed):
@@ -1866,9 +2230,10 @@ def _multi_gpu_rank(rank, world, store, out_dir):
 
 
 def phase_multi_gpu(torch):
-    """TeraSort, WordCount, the hash join, the external sort, the byte
-    plane (``exchange_padded`` full and windowed, ``exchange_into``) and
-    ring and Ulysses attention over NCCL on min(cards, 4) cards, one
+    """TeraSort, WordCount, the keyed aggregate, grouped top-k, the hash
+    and broadcast joins, the fused join+aggregate, the external sort, the
+    byte plane (``exchange_padded`` full and windowed, ``exchange_into``)
+    and ring and Ulysses attention over NCCL on min(cards, 4) cards, one
     process per card, each rank against a one-card oracle; a failure
     fails the run.  With one card nothing runs: NCCL refuses two ranks
     on one GPU."""
@@ -2040,6 +2405,11 @@ def main(argv=None) -> int:
         # host-bound) left torch.profiler without kernel 3's records in
         # the attention profiles after it
         phase_byte_plane(torch, dev)
+        torch.cuda.empty_cache()
+        phase_record_plane(torch, dev)
+        torch.cuda.empty_cache()
+        scan_k["launches"] += phase_device_workloads(torch, _build, gen,
+                                                     dev)
         torch.cuda.empty_cache()
         phase_external_sort(torch, ext_mod, args.seed, dev)
     except SmokeError as e:

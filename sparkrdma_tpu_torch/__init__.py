@@ -18,8 +18,16 @@ exchange.  Sequence-parallel attention (ring and Ulysses) runs on an
 exchange group of any size, over the blockwise flash-attention kernel.
 ``python -m sparkrdma_tpu_torch.bench`` is the TeraSort benchmark, and
 ``sparkrdma_tpu_torch.entry.entry()`` the one-step compile entry.
+
+The record-level shuffle (``api.py``: :class:`TpuShuffleContext` and its
+``Dataset``; ``shuffle/``: the manager, writer, resolver and reader over
+``transport/``) runs on the host read plane: each committed map output
+is a tensor on the executor's device, and reducers fetch blocks as
+one-sided reads over the loopback or TCP transport.
 """
 
+from sparkrdma_tpu_torch.api import Dataset, TpuShuffleContext
+from sparkrdma_tpu_torch.conf import TpuShuffleConf
 from sparkrdma_tpu_torch.models import (
     JOIN_HOWS,
     BroadcastJoinAggregator,
@@ -43,6 +51,7 @@ from sparkrdma_tpu_torch.parallel import ExchangeGroup, RingExchange
 
 __all__ = [
     "BroadcastJoinAggregator",
+    "Dataset",
     "BroadcastJoiner",
     "ExchangeGroup",
     "ExternalTeraSorter",
@@ -53,6 +62,8 @@ __all__ = [
     "KeyedAggregator",
     "RingExchange",
     "TeraSorter",
+    "TpuShuffleConf",
+    "TpuShuffleContext",
     "WordCounter",
     "block_attention",
     "ring_attention",

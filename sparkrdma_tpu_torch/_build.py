@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # lock-order: 87
 _LIB: Optional[ctypes.CDLL] = None
 _LAST_BUILD: Dict[str, object] = {}
 

@@ -1,5 +1,5 @@
-"""Memory of the port: the device arena and its registry, the staging
-bridge, and the host disk helpers."""
+"""Memory of the port: the native host staging pool, the device arena
+and its registry, the staging bridge, and the host disk helpers."""
 
 from sparkrdma_tpu_torch.memory.arena import ArenaManager, DeviceSegment
 from sparkrdma_tpu_torch.memory.device_arena import (
@@ -7,6 +7,7 @@ from sparkrdma_tpu_torch.memory.device_arena import (
     DeviceStagingBridge,
 )
 from sparkrdma_tpu_torch.memory.direct_io import DirectAppender, direct_supported
+from sparkrdma_tpu_torch.memory.staging import StagingBuffer, StagingPool
 
 __all__ = [
     "ArenaManager",
@@ -14,5 +15,7 @@ __all__ = [
     "DeviceSegment",
     "DeviceStagingBridge",
     "DirectAppender",
+    "StagingBuffer",
+    "StagingPool",
     "direct_supported",
 ]

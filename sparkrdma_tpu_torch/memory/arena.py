@@ -24,7 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.metrics import counter, gauge
+from sparkrdma_tpu_torch.metrics import NULL_COUNTER, counter, gauge, get_registry
 from sparkrdma_tpu_torch.transport.channel import BlockStore, TransportError
 from sparkrdma_tpu_torch.utils.dbglock import dbg_lock
 from sparkrdma_tpu_torch.utils.ledger import NOOP_TICKET, ledger_acquire
@@ -62,6 +62,9 @@ class DeviceSegment:
         self.budgeted = budgeted
         self.zero_copy_ok = zero_copy_ok
         self.created_at = time.monotonic()
+        # bytes this segment's tensor copied to the host (set by the
+        # registering ArenaManager for tensor segments)
+        self.read_meter = NULL_COUNTER
 
     def _release_keepalive(self) -> None:
         ka, self.keepalive = self.keepalive, None
@@ -98,6 +101,7 @@ class DeviceSegment:
             view = self.array[offset:end].view()
             view.flags.writeable = False
             return view
+        self.read_meter.inc(length)
         return bytes(_host_copy(self.array[offset:end]))
 
     def read_many(self, spans):
@@ -118,9 +122,12 @@ class DeviceSegment:
             )
         if isinstance(self.array, np.ndarray):
             return [self.read(o, l) for o, l in spans]
-        return _read_spans_clustered(
-            spans, lambda a, b: _host_copy(self.array[a:b])
-        )
+
+        def fetch(a, b):
+            self.read_meter.inc(b - a)
+            return _host_copy(self.array[a:b])
+
+        return _read_spans_clustered(spans, fetch)
 
 
 # read_many clusters spans whose gaps exceed this: a sparse batch (two
@@ -240,6 +247,11 @@ class ArenaManager(BlockStore):
         # process-wide gauge shared by every ArenaManager: mutate by
         # DELTA so in-process driver+executor arenas aggregate
         self._m_bytes = gauge("arena_registered_bytes")
+        # always on: the device-to-host bytes reads of tensor segments
+        # copy (the fetch side of a device-staged shuffle)
+        self._m_device_read = get_registry().counter(
+            "arena_device_read_bytes_total", force=True
+        )
 
     def register(self, array, shuffle_id: Optional[int] = None,
                  keepalive=None, budgeted: bool = True,
@@ -273,6 +285,8 @@ class ArenaManager(BlockStore):
             self._next_mkey += 1
             seg = DeviceSegment(mkey, array, shuffle_id, keepalive=keepalive,
                                 budgeted=budgeted, zero_copy_ok=zero_copy_ok)
+            if isinstance(array, torch.Tensor):
+                seg.read_meter = self._m_device_read
             self._segments[mkey] = seg
             if budgeted:
                 self._total_bytes += nbytes

@@ -49,7 +49,7 @@ except (OSError, AttributeError):  # non-Linux libc
 ALIGN = 4096
 
 _support_cache: Dict[str, bool] = {}
-_support_lock = threading.Lock()
+_support_lock = threading.Lock()  # lock-order: 88
 
 
 def direct_supported(directory: str) -> bool:

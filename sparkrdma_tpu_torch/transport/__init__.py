@@ -1,9 +1,11 @@
-"""Transport layer: channels and their completion model.
+"""Transport layer: channels, nodes, flow control, loopback backend.
 
-A copy of the JAX package's ``transport/channel.py`` (the reference's
-L4 channel, SURVEY.md §1).  Only the channel's names are exported: the
-node, the loopback and TCP backends come with the record-level
-shuffle.
+The reference's L4 (RdmaNode/RdmaChannel/RdmaThread over DiSNI verbs,
+SURVEY.md §1).  Here a ``Channel`` carries the same two traffic classes —
+small control RPCs and bulk one-sided block reads — over pluggable
+backends: an in-process loopback for tests and single-host runs, and TCP
+between processes.  The device-to-device byte exchange is
+``sparkrdma_tpu_torch.parallel.exchange``.
 """
 
 from sparkrdma_tpu_torch.transport.channel import (
@@ -15,13 +17,21 @@ from sparkrdma_tpu_torch.transport.channel import (
     FnCompletionListener,
     TransportError,
 )
+from sparkrdma_tpu_torch.transport.node import Node
+from sparkrdma_tpu_torch.transport.loopback import LoopbackNetwork
+from sparkrdma_tpu_torch.transport.stripe import ReadGroup
+from sparkrdma_tpu_torch.transport.tcp import TcpNetwork
 
 __all__ = [
     "BlockStore",
+    "TcpNetwork",
+    "ReadGroup",
     "Channel",
     "ChannelState",
     "ChannelType",
     "CompletionListener",
     "FnCompletionListener",
     "TransportError",
+    "Node",
+    "LoopbackNetwork",
 ]

@@ -37,9 +37,6 @@ Tickets from a previous ledger epoch (the ledger was stopped/reset
 since — e.g. a GC-tied tier pin whose weakref finalizer fires during
 interpreter shutdown, after the manager already stopped) release as
 silent no-ops: a late finalizer must never raise out of the GC.
-
-(The JAX package's copy also dumps the flight recorder on a leak; the
-port's flight recorder, ``obs/``, comes with the record-level shuffle.)
 """
 
 from __future__ import annotations
@@ -309,6 +306,18 @@ class ResourceLedger:
                          "outstanding at ledger stop", total, resource)
         for line in report:
             logger.error("  leaked %s", line)
+        if leaked:
+            # a leak at ledger stop is a lifecycle bug — leave the
+            # flight recorder's view of the run's tail next to the
+            # leak report (obs/; lazy import keeps utils/ base-level)
+            from sparkrdma_tpu_torch.obs import RECORDER, fr_event
+
+            if RECORDER.enabled:
+                fr_event(
+                    "faults", "ledger_leak",
+                    resources=len(leaked), units=sum(leaked.values()),
+                )
+                RECORDER.auto_dump("ledger_leak")
         if leaked and raise_on_leak:
             raise ResourceLeakError(
                 f"{sum(leaked.values())} unit(s) of "

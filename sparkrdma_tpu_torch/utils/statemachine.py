@@ -19,9 +19,8 @@ the table: an edge absent from ``TRANSITIONS`` raises
 :class:`IllegalTransition` carrying both states and a 4-frame call
 site, and every legal edge counts
 ``state_transitions_total{machine=,from=,to=}`` (terminal entries also
-count ``state_terminal_total{machine=,state=}``).  (The JAX package's
-copy also records a flight-recorder event per edge; the port's flight
-recorder, ``obs/``, comes with the record-level shuffle.)
+count ``state_terminal_total{machine=,state=}``) plus a flight-recorder
+``state``-plane event when the recorder is armed.
 
 On top of validation, ``spark.shuffle.tpu.schedShake=<seed>`` arms the
 deterministic schedule shaker: at every validated transition a seeded
@@ -111,11 +110,16 @@ class StateDebug:
         """Validate one proposed transition of ``obj``'s machine.
         Same-state re-assertions are legal no-ops (idempotent stop()
         patterns) and are neither counted nor shaken."""
+        from sparkrdma_tpu_torch.obs import RECORDER, fr_event
+
         cur = state_token(getattr(obj, field))
         dst = state_token(to)
         if frm is not None and state_token(frm) != cur:
             site = _call_site()
             counter("state_transitions_illegal_total", machine=name).inc()
+            if RECORDER.enabled:
+                fr_event("state", "illegal", machine=name, src=cur, dst=dst,
+                         site=site)
             raise IllegalTransition(name, cur, dst,
                                     f"expected from={state_token(frm)!r} "
                                     f"saw {cur!r} at {site}")
@@ -124,11 +128,16 @@ class StateDebug:
         if dst not in transitions.get(cur, ()):
             site = _call_site()
             counter("state_transitions_illegal_total", machine=name).inc()
+            if RECORDER.enabled:
+                fr_event("state", "illegal", machine=name, src=cur, dst=dst,
+                         site=site)
             raise IllegalTransition(name, cur, dst, site)
         counter("state_transitions_total", machine=name,
                 **{"from": cur, "to": dst}).inc()
         if dst in terminal:
             counter("state_terminal_total", machine=name, state=dst).inc()
+        if RECORDER.enabled:
+            fr_event("state", "transition", machine=name, src=cur, dst=dst)
         if self.shake_seed:
             self._shake(name)
 

@@ -567,3 +567,67 @@ def test_byte_plane_a2a_and_arena_on_card(cuda_device):
         [data[o:o + 50].tobytes() for o in (0, 99_000, 5)]
     mgr.stop()
     assert arena.stats()["allocated_bytes"] == 0
+
+
+# -- the record-level shuffle on the host read plane --------------------------
+
+
+def _reduce_job(device, n=30_000, keys=1024):
+    """Config 2 of the card run at a small size: (int, 1) records over
+    ``keys`` keys, 2 executors, 4 slices, 4 partitions."""
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+
+    data = [(i % keys, 1) for i in range(n)]
+    ctx = TpuShuffleContext(num_executors=2, device=device)
+    staged = []
+    orig = [ex.resolver._to_device for ex in ctx.executors]
+    for ex, fn in zip(ctx.executors, orig):
+        def spy(host, fn=fn):
+            t = fn(host)
+            staged.append(bool(t.is_cuda))
+            return t
+        ex.resolver._to_device = spy
+    try:
+        out = sorted(ctx.parallelize(data, num_slices=4)
+                     .reduce_by_key(lambda a, b: a + b, num_partitions=4)
+                     .collect())
+        pools = [ex.staging_pool.is_native for ex in ctx.executors]
+    finally:
+        ctx.stop()
+    return out, staged, pools
+
+
+@pytest.mark.gpu
+def test_record_plane_reduce_by_key_on_card(cuda_device):
+    """Every committed map output is a CUDA tensor, the result equals the
+    CPU run's, and device memory returns to its start after stop()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out, staged, pools = _reduce_job(cuda_device)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    assert staged and all(staged)
+    assert all(pools)
+    ref, ref_staged, _ = _reduce_job("cpu")
+    assert out == ref
+    assert sum(v for _k, v in out) == 30_000 and len(out) == 1024
+    assert ref_staged and not any(ref_staged)
+
+
+@pytest.mark.gpu
+def test_context_device_count_launches_flagged_scan(cuda_device):
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 500, 1 << 16).astype(np.int32)
+    want = dict(zip(*np.unique(keys, return_counts=True)))
+    with TpuShuffleContext(num_executors=1, device=cuda_device) as ctx:
+        _build.reset_launch_counts()
+        got = ctx.device_count(keys)
+        launched = _build.launch_counts()["flagged_scan"]
+    assert launched >= 1
+    assert got == {int(k): int(v) for k, v in want.items()}

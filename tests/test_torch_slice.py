@@ -478,28 +478,15 @@ def test_interop_round_trip():
 
 
 def test_import_loads_neither_jax_nor_reference():
+    """Every module of the port, found by walking the package, imports
+    without loading ``jax`` or ``sparkrdma_tpu``."""
     code = (
-        "import sys, sparkrdma_tpu_torch, sparkrdma_tpu_torch.ops, "
-        "sparkrdma_tpu_torch.models, sparkrdma_tpu_torch.interop, "
-        "sparkrdma_tpu_torch.parallel.ring, "
-        "sparkrdma_tpu_torch.ops.attention, "
-        "sparkrdma_tpu_torch.ops.partition, "
-        "sparkrdma_tpu_torch.memory.direct_io, "
-        "sparkrdma_tpu_torch.models.join, "
-        "sparkrdma_tpu_torch.models.join_aggregate, "
-        "sparkrdma_tpu_torch.models.topk, "
-        "sparkrdma_tpu_torch.models.external_sort, "
-        "sparkrdma_tpu_torch.models.ring_attention, "
-        "sparkrdma_tpu_torch.parallel.exchange, "
-        "sparkrdma_tpu_torch.memory.device_arena, "
-        "sparkrdma_tpu_torch.memory.arena, "
-        "sparkrdma_tpu_torch.metrics, sparkrdma_tpu_torch.metrics.export, "
-        "sparkrdma_tpu_torch.utils.statemachine, "
-        "sparkrdma_tpu_torch.utils.dbglock, "
-        "sparkrdma_tpu_torch.utils.types, "
-        "sparkrdma_tpu_torch.utils.ledger, "
-        "sparkrdma_tpu_torch.transport, "
-        "sparkrdma_tpu_torch.transport.channel\n"
+        "import importlib, pkgutil, sys, sparkrdma_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'sparkrdma_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert len(mods) > 80 and 'sparkrdma_tpu_torch.api' in mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sparkrdma_tpu' "
         "or m.startswith('sparkrdma_tpu.'))\n"
