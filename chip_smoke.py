@@ -23,10 +23,14 @@ its plain version in float32, bfloat16 and float16 at d_head 32 to 576,
 and timed at d 256 and 512 (bfloat16) and d 128 (float16).  The byte
 data plane (``TileExchange``, ``DeviceArena``) runs at a 1 GiB row and
 256 MiB of tile rounds on one card, its bytes checked and its rates
-set beside the host link's.  With two or more cards it also runs
-TeraSort, WordCount, the hash join, the external sort, the byte plane
-and ring and Ulysses attention over NCCL on up to four of them; with
-one it prints that this did not run.
+set beside the host link's.  The record-level shuffle runs through
+``TpuShuffleContext`` on the host read plane and on the bulk and
+windowed device read planes (the co-located exchange on the card),
+each result held against the host plane's and an oracle.  With two or
+more cards it also runs TeraSort, WordCount, the hash join, the
+external sort, the byte plane, ring and Ulysses attention and the
+windowed read plane (one executor per card) over NCCL on up to four of
+them; with one it prints that this did not run.
 float32 matrix products run without TF32 throughout, so the plain
 versions and oracles are full float32.
 
@@ -92,6 +96,10 @@ ARENA_SPAN = 4 << 20
 BYTE_REPS = 3               # timed calls of each byte-plane path
 HOST_LINK_BYTES_PER_S = 64e9  # PCIe 5.0 x16, each direction
 MULTI_PAIR_BYTES = 64 << 20   # multi_gpu byte plane, per (source, dest)
+# multi_gpu windowed plane: one executor per rank over TCP at this port
+# (driver) and PORT + 10 + rank (executors), 2 maps per rank, windows of
+# one map per rank
+MULTI_PLANE_PORT = 29600
 # the record-level shuffle on the host read plane (TpuShuffleContext over
 # LoopbackNetwork, map outputs staged in the card's memory).  Config 2:
 # benchmarks/bench_reduce_loopback.py:44-45,760-766 (reduceByKey of
@@ -104,6 +112,12 @@ REC2_N, REC2_KEYS, REC2_EXEC, REC2_SLICES, REC2_PARTS = (
 REC1_N, REC1_PAYLOAD, REC1_KEYS = 1 << 24, 64, 512
 REC1_EXEC, REC1_SLICES, REC1_PARTS, REC1_TASKS = 4, 8, 8, 2
 REC_REPS = 2                # timed jobs of each (config, staging) pair
+# the bulk and windowed device read planes (shuffle/bulk.py over the
+# co-located exchange, readPlane=bulk | windowed): configs 1 (narrow
+# keys) and 2 above, each through both planes with the padded device
+# path (deviceExchangeEnabled) on and off; the windowed plane plans
+# windows of 2 maps (bulkWindowMaps)
+DRP_WINDOW_MAPS = 2
 # float32 "add" sums in another order in the kernel (sequential per
 # thread, then a tree) than in the log-step plain version; segments
 # average 1000 values of magnitude <= 1, so the two sums differ by far
@@ -1468,6 +1482,303 @@ def phase_record_plane(torch, dev):
         del oracle, sums
 
 
+def _key_digests(np, keys, rows):
+    """Per key: (records, the 64-bit word sums, the 64-bit word xors) of
+    its rows, an order-independent digest of a group (``rows`` is ``[n,
+    words]`` uint64)."""
+    order = np.argsort(keys, kind="stable")
+    uk, heads, sizes = np.unique(keys[order], return_index=True,
+                                 return_counts=True)
+    sums = np.add.reduceat(rows[order], heads, axis=0)
+    xors = np.bitwise_xor.reduceat(rows[order], heads, axis=0)
+    return {int(k): (int(n), a.tobytes(), x.tobytes())
+            for k, n, a, x in zip(uk, sizes, sums, xors)}
+
+
+def _groups_digests(np, res, words):
+    """:func:`_key_digests` of a columnar groupByKey result."""
+    out = {}
+    for k, grp in res:
+        g = np.ascontiguousarray(grp).view(np.uint64).reshape(-1, words)
+        out[int(k)] = (g.shape[0],
+                       g.sum(axis=0, dtype=np.uint64).tobytes(),
+                       np.bitwise_xor.reduce(g, axis=0).tobytes())
+    return out
+
+
+def _read_plane_job(torch, dev, make_ctx, job, digest, want, device_path,
+                    reps=REC_REPS, label=None):
+    """One (config, plane, path) of :func:`phase_device_read_plane` on a
+    fresh context: a checked first job, then ``reps`` timed jobs (host
+    clock); with ``label`` one more job runs under the profiler.  Every
+    job's exchange counters (summed over the sessions the context made)
+    and the bytes of the blocks it committed are kept per job."""
+    import gc
+
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.metrics import get_registry
+
+    def fallbacks():
+        return sum(c["value"] for c in get_registry().snapshot()["counters"]
+                   if c["name"] == "exchange_row_pool_fallbacks_total")
+
+    keys = ("rounds_executed", "payload_bytes_moved", "padded_bytes_moved",
+            "device_exchanges")
+    sessions = []
+    orig = TpuShuffleContext._session
+
+    def spy(self):
+        sessions.append(orig(self))
+        return sessions[-1]
+
+    def totals():
+        return {k: sum(x.exchange.stats()[k] for x in sessions)
+                for k in keys}
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fb0 = fallbacks()
+    TpuShuffleContext._session = spy
+    try:
+        ctx = make_ctx()  # the windowed plane's session
+    finally:
+        TpuShuffleContext._session = orig
+    ctx._session = lambda: spy(ctx)  # the bulk plane's, one per job
+    blocks, windows = [], []
+    for ex in ctx.executors:
+        def unregister(sid, ex=ex, orig_un=ex.unregister_shuffle):
+            r = ex.resolver
+            n = 0
+            for m in r.map_ids(sid):
+                n += sum(len(b) for b in r.get_local_blocks(
+                    sid, m, range(r.num_partitions(sid))))
+            blocks.append(n)
+            if ex.windowed_plane is not None:
+                windows.append(len(ex.windowed_plane.window_events(sid)))
+            return orig_un(sid)
+        ex.unregister_shuffle = unregister
+    per_job = []
+
+    def run():
+        s0, nb0 = totals(), len(blocks)
+        res = job(ctx)
+        s1 = totals()
+        per_job.append(dict({k: s1[k] - s0[k] for k in keys},
+                            block_bytes=sum(blocks[nb0:])))
+        return res
+
+    try:
+        t0 = time.monotonic()
+        res = run()
+        first_s = time.monotonic() - t0
+        got = digest(res)
+        require(got == want, f"{label}: result differs from the host plane")
+        del res, got
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            run()
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t0)
+        if label:
+            profile(torch, label, run, warm=False)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ctx.stop()
+    del ctx, sessions[:]
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    for j in per_job:
+        require((j["device_exchanges"] > 0) == device_path,
+                f"{label}: device_exchanges {j['device_exchanges']} with "
+                f"the device path {'on' if device_path else 'off'}")
+        require(j["payload_bytes_moved"] == j["block_bytes"] > 0,
+                f"{label}: exchange moved {j['payload_bytes_moved']} B of "
+                f"{j['block_bytes']} B of blocks")
+    require(after == base,
+            f"{label}: device memory {after} B after stop(), {base} B "
+            "before")
+    return dict(first_s=first_s, seconds=secs, seconds_min=min(secs),
+                per_job=per_job[0], jobs=len(per_job),
+                window_events_per_job=sum(windows) / len(per_job),
+                exchange_row_pool_fallbacks_total=fallbacks() - fb0,
+                max_memory_allocated=peak, memory_allocated_before=base,
+                memory_allocated_after_stop=after)
+
+
+def _row_copies(torch, n, dev):
+    """Milliseconds (best of BYTE_REPS, host clock) of one ``n``-byte
+    copy each way between the card and a source row as the read planes
+    allocate it: a pinned row (what they use on a card) and a row of the
+    native ``StagingPool`` (pageable; what the JAX package uses)."""
+    from sparkrdma_tpu_torch.memory.device_arena import host_bytes
+    from sparkrdma_tpu_torch.memory.staging import StagingPool
+
+    d = torch.empty(n, dtype=torch.uint8, device=dev)
+    pool = StagingPool(max_bytes=2 * n)
+    res = {}
+    for kind in ("pinned", "pool"):
+        h = host_bytes(dev, n) if kind == "pinned" else \
+            torch.from_numpy(pool.alloc_gc(n)[:n])
+        h.fill_(1)
+        res[f"h2d_{kind}_ms"] = min(_host_ms(torch, lambda: d.copy_(h)))
+        res[f"d2h_{kind}_ms"] = min(_host_ms(torch, lambda: h.copy_(d)))
+        del h
+    pool.close()
+    return res
+
+
+def phase_device_read_plane(torch, dev):
+    """The bulk and windowed device read planes through
+    ``TpuShuffleContext`` (``readPlane=bulk`` and ``windowed`` with
+    ``bulkWindowMaps=2``): write, publish, the plan barrier, the
+    exchange over the co-located ``TileExchange`` on the card (the
+    padded device path, ``deviceExchangeEnabled=true``, and host-staged
+    tile rounds, ``false``) and the read.  Config 1 (columnar groupByKey
+    of 2^24 x 64 B over 512 narrow keys, 4 executors) and config 2
+    (pickle reduceByKey of 300 000 (int, 1) records over 1024 keys, 2
+    executors), each result equal to the same job on ``readPlane=host``
+    and to an independent oracle (config 1: per key the record count
+    and the sum and xor of its 64-bit words, by numpy; config 2: a dict
+    sum); each line also gives the host plane's best time of two.  Per
+    (config, plane, path) one ``device_read_plane`` line and, on the
+    device path, a ``profile`` line; then a ``row_memory`` line:
+    the source rows pinned (as the planes run them) against the staging
+    pool's pageable rows, end to end and per copy."""
+    import numpy as np
+
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+    from sparkrdma_tpu_torch.shuffle import bulk as bulk_mod
+
+    def conf_for(base, plane, device_path):
+        c = dict(base)
+        c["spark.shuffle.tpu.readPlane"] = plane
+        c["spark.shuffle.tpu.deviceExchangeEnabled"] = str(device_path)
+        if plane == "windowed":
+            c["spark.shuffle.tpu.bulkWindowMaps"] = str(DRP_WINDOW_MAPS)
+        return TpuShuffleConf(c)
+
+    # config 2
+    rng = np.random.default_rng(1)
+    records = [(int(k), 1) for k in rng.integers(0, REC2_KEYS, REC2_N)]
+    oracle2 = {}
+    for k, v in records:
+        oracle2[k] = oracle2.get(k, 0) + v
+
+    def c2_job(ctx):
+        return ctx.parallelize(records, num_slices=REC2_SLICES) \
+            .reduce_by_key(lambda a, b: a + b,
+                           num_partitions=REC2_PARTS).collect()
+
+    # config 1, narrow keys
+    rng = np.random.default_rng(0)
+    keys1 = rng.integers(0, REC1_KEYS, REC1_N).astype(np.int64)
+    vals1 = np.frombuffer(np.random.default_rng(1).bytes(
+        REC1_N * REC1_PAYLOAD), dtype=f"S{REC1_PAYLOAD}")
+    words = REC1_PAYLOAD // 8
+    oracle1 = _key_digests(np, keys1, vals1.view(np.uint64)
+                           .reshape(REC1_N, words))
+
+    def c1_job(ctx):
+        return ctx.parallelize_columns(keys1, vals1,
+                                       num_slices=REC1_SLICES) \
+            .group_by_key(num_partitions=REC1_PARTS).collect()
+
+    configs = [
+        ("2: reduceByKey loopback", c2_job, lambda r: dict(r), oracle2,
+         REC2_N, REC2_N * 16, {}, REC2_EXEC, 4,
+         dict(keys=REC2_KEYS, slices=REC2_SLICES, partitions=REC2_PARTS,
+              serializer="pickle")),
+        ("1: groupByKey columnar, narrow keys", c1_job,
+         lambda r: _groups_digests(np, r, words), oracle1, REC1_N,
+         REC1_N * REC1_PAYLOAD,
+         {"spark.shuffle.tpu.serializer": "columnar"}, REC1_EXEC,
+         REC1_TASKS,
+         dict(keys=REC1_KEYS, slices=REC1_SLICES, partitions=REC1_PARTS,
+              serializer="columnar", key_bytes=REC1_N * 8)),
+    ]
+    for (config, job, digest, oracle, n, payload, base_conf, execs,
+         tasks, fields) in configs:
+        def make(plane, device_path=False, base_conf=base_conf,
+                 execs=execs, tasks=tasks):
+            return lambda: TpuShuffleContext(
+                num_executors=execs, conf=conf_for(base_conf, plane,
+                                                   device_path),
+                tasks_per_executor=tasks, device=dev)
+
+        host_ctx = make("host")()
+        try:
+            want = digest(job(host_ctx))
+            host_s = []
+            for _ in range(REC_REPS):
+                t0 = time.monotonic()
+                job(host_ctx)
+                host_s.append(time.monotonic() - t0)
+        finally:
+            host_ctx.stop()
+        require(want == oracle, f"config {config}: the host plane differs "
+                "from the oracle")
+        short = config.split(":")[0]
+        runs = {}
+        for plane in ("bulk", "windowed"):
+            for device_path in (True, False):
+                path = "device" if device_path else "host_staged"
+                r = _read_plane_job(
+                    torch, dev, make(plane, device_path), job, digest,
+                    want, device_path,
+                    label=f"device_read_plane_config{short}_{plane}_{path}"
+                    if device_path else None)
+                runs[(plane, path)] = r
+                pj = r["per_job"]
+                phase("device_read_plane", config=config, plane=plane,
+                      path=path, n_records=n, payload_bytes=payload,
+                      executors=execs, **fields,
+                      window_maps=DRP_WINDOW_MAPS if plane == "windowed"
+                      else None, seconds_best=r["seconds_min"],
+                      host_plane_seconds_best=min(host_s),
+                      mrec_per_s=n / r["seconds_min"] / 1e6,
+                      gb_per_s=payload / r["seconds_min"] / 1e9,
+                      exchange_per_job={k: pj[k] for k in (
+                          "rounds_executed", "payload_bytes_moved",
+                          "padded_bytes_moved", "device_exchanges")},
+                      block_bytes_per_job=pj["block_bytes"],
+                      link_bound_ms_per_direction=pj["padded_bytes_moved"]
+                      / HOST_LINK_BYTES_PER_S * 1e3,
+                      bound_by="padded exchange bytes each way over the "
+                               "host link (64 GB/s)", **r,
+                      equal_to_host_plane=True, correct=True)
+
+        if short == "1":
+            # source rows from the staging pool (pageable, as the JAX
+            # package allocates them) against the pinned rows the planes
+            # use on a card: the device path copies each row to the card
+            # as it is
+            orig = bulk_mod.source_row_alloc
+            bulk_mod.source_row_alloc = lambda m: \
+                bulk_mod.DeviceStagingBridge(m.device,
+                                             pool=m.staging_pool).alloc_row
+            try:
+                pool_rows = _read_plane_job(
+                    torch, dev, make("bulk", True), job, digest, want, True)
+            finally:
+                bulk_mod.source_row_alloc = orig
+            row = payload // execs
+            phase("row_memory", config=config, plane="bulk",
+                  path="device", source_rows="staging pool (pageable)",
+                  seconds_pool_rows=pool_rows["seconds_min"],
+                  seconds_pinned_rows=runs[("bulk", "device")]
+                  ["seconds_min"],
+                  seconds=pool_rows["seconds"], row_bytes=row,
+                  copies_of_one_row=_row_copies(torch, row, dev),
+                  correct=True)
+    del records, keys1, vals1
+
+
 def phase_device_workloads(torch, _build, gen, dev):
     """``ctx.device_count`` and ``ctx.device_aggregate`` on KEYED_N Zipf
     keys through the shuffle context: each equals the direct
@@ -2208,21 +2519,150 @@ def _multi_gpu_external_sort(torch, group, n_ext, timed):
                 "of the sort")
 
 
+def multi_gpu_windowed(torch, group, n_per_rank, out_dir,
+                       port=MULTI_PLANE_PORT):
+    """The windowed read plane across processes, one executor per rank
+    on its own device (``group.device``) over a TCP control plane (rank 0
+    also runs the driver), as tests/multihost4_worker.py's first phase
+    runs it: config 1's columnar groupByKey of 64 B payloads over 512
+    keys at ``n_per_rank`` records per rank, 2 maps per rank, windows of
+    one map per rank, every rank reading the partitions it owns through
+    ``get_reader`` (its exchange: the initialised world on its device).
+    Every rank draws the whole seeded input and checks its groups
+    against a numpy oracle; rank 0 then runs the same job co-located,
+    ``world`` executors on its one card, and each rank holds its groups
+    against that result too.  Returns the host seconds of the
+    cross-process read and of the co-located job."""
+    import threading
+
+    import numpy as np
+
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+    from sparkrdma_tpu_torch.shuffle.manager import (
+        ColumnarAggregator,
+        ShuffleHandle,
+        TpuShuffleManager,
+    )
+    from sparkrdma_tpu_torch.shuffle.partitioner import HashPartitioner
+    from sparkrdma_tpu_torch.transport import TcpNetwork
+
+    import torch.distributed as dist
+
+    rank, world, dev = group.rank, group.size, group.device
+    n, words, maps = n_per_rank * world, REC1_PAYLOAD // 8, 2 * world
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, REC1_KEYS, n).astype(np.int64)
+    vals = np.frombuffer(np.random.default_rng(1).bytes(n * REC1_PAYLOAD),
+                         dtype=f"S{REC1_PAYLOAD}")
+    bounds = [(i * n) // maps for i in range(maps + 1)]
+    part = HashPartitioner(REC1_PARTS)
+    agg = ColumnarAggregator.group()
+    conf = {"spark.shuffle.tpu.driverPort": port,
+            "spark.shuffle.tpu.serializer": "columnar",
+            "spark.shuffle.tpu.readPlane": "windowed",
+            "spark.shuffle.tpu.bulkWindowMaps": str(world),
+            "spark.shuffle.tpu.partitionLocationFetchTimeout": "300s",
+            "spark.shuffle.tpu.connectTimeout": "30s"}
+    driver = None
+    if rank == 0:
+        driver = TpuShuffleManager(TpuShuffleConf(dict(conf)),
+                                   is_driver=True, network=TcpNetwork(),
+                                   port=port, device=dev)
+        driver.register_shuffle(1, maps, part, aggregator=agg)
+    dist.barrier(group=group.group)  # the driver listens
+    ex = TpuShuffleManager(TpuShuffleConf(dict(conf)), is_driver=False,
+                           network=TcpNetwork(), port=port + 10 + rank,
+                           executor_id=str(rank), device=dev)
+    deadline = time.monotonic() + 120
+    while len(ex._peers) < world and time.monotonic() < deadline:
+        time.sleep(0.02)
+    require(len(ex._peers) == world, f"rank {rank}: announce incomplete")
+    from sparkrdma_tpu_torch.utils.columns import ColumnBatch
+
+    handle = ShuffleHandle(1, maps, part, aggregator=agg)
+    mine = [p for p in range(REC1_PARTS) if p % world == rank]
+    got, errs = {}, {}
+
+    def reduce_task(p):
+        try:
+            got[p] = list(ex.get_reader(handle, p, p + 1, {}).read())
+        except BaseException as e:
+            errs[p] = e
+
+    t0 = time.monotonic()
+    ts = [threading.Thread(target=reduce_task, args=(p,)) for p in mine]
+    for t in ts:
+        t.start()
+    for m in (rank, rank + world):
+        w = ex.get_writer(handle, m)
+        w.write(ColumnBatch(keys[bounds[m]:bounds[m + 1]],
+                            vals[bounds[m]:bounds[m + 1]]))
+        w.stop(True)
+    for t in ts:
+        t.join(timeout=600)
+    secs = time.monotonic() - t0
+    require(not errs and sorted(got) == mine,
+            f"rank {rank}: windowed plane failed: {errs}")
+    windows = [w for w, _t, _b in ex.windowed_plane.window_events(1)]
+    stats = ex.windowed_plane.stats()
+    mine_d = _groups_digests(np, [kv for p in mine for kv in got[p]], words)
+    del got
+    owned = {int(k) for k in range(REC1_KEYS)
+             if part.partition(int(k)) % world == rank}
+    oracle = _key_digests(np, keys, vals.view(np.uint64).reshape(n, words))
+    require(mine_d == {k: oracle[k] for k in owned if k in oracle},
+            f"rank {rank}: windowed groups differ from the oracle")
+    ex.stop()
+    if driver is not None:
+        driver.stop()
+    colo_s = None
+    if rank == 0:
+        c = TpuShuffleConf({"spark.shuffle.tpu.serializer": "columnar",
+                            "spark.shuffle.tpu.readPlane": "windowed",
+                            "spark.shuffle.tpu.bulkWindowMaps": str(world)})
+        t0 = time.monotonic()
+        with TpuShuffleContext(num_executors=world, conf=c, device=dev,
+                               tasks_per_executor=REC1_TASKS) as ctx:
+            res = ctx.parallelize_columns(keys, vals, num_slices=maps) \
+                .group_by_key(num_partitions=REC1_PARTS).collect()
+        colo_s = time.monotonic() - t0
+        colo = _groups_digests(np, res, words)
+        del res
+        require(colo == oracle, "co-located groups differ from the oracle")
+        with open(os.path.join(out_dir, "colocated.json"), "w") as f:
+            json.dump({str(k): [v[0], v[1].hex(), v[2].hex()]
+                       for k, v in colo.items()}, f)
+    dist.barrier(group=group.group)
+    with open(os.path.join(out_dir, "colocated.json")) as f:
+        colo = {int(k): (v[0], bytes.fromhex(v[1]), bytes.fromhex(v[2]))
+                for k, v in json.load(f).items()}
+    require(mine_d == {k: colo[k] for k in owned if k in colo},
+            f"rank {rank}: windowed groups differ from the co-located "
+            "result")
+    return dict(windowed_plane_s=secs, windows=windows,
+                payload_bytes_moved=stats["payload_bytes_moved"],
+                rounds_executed=stats["rounds_executed"],
+                device_exchanges=stats["device_exchanges"],
+                colocated_s=colo_s)
+
+
 def _multi_gpu_rank(rank, world, store, out_dir):
     """One NCCL rank of :func:`phase_multi_gpu` (``torch.multiprocessing``
-    target): its times go to ``out_dir/rank<rank>.json``."""
+    target), joined through ``parallel/multihost.initialize`` (card
+    ``rank``): its times go to ``out_dir/rank<rank>.json``."""
     import torch
     import torch.distributed as dist
 
-    from sparkrdma_tpu_torch import ExchangeGroup
+    from sparkrdma_tpu_torch.parallel import multihost
 
-    torch.cuda.set_device(rank)
-    dist.init_process_group("nccl", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
+    multihost.initialize(f"file://{store}", world, rank, timeout_s=600)
     try:
-        times = multi_gpu_cases(torch, ExchangeGroup(dist.group.WORLD),
-                                MULTI_SORT_N, MULTI_FACT_N, MULTI_DIM_N,
-                                MULTI_EXT_N)
+        group = multihost.global_group()
+        times = multi_gpu_cases(torch, group, MULTI_SORT_N, MULTI_FACT_N,
+                                MULTI_DIM_N, MULTI_EXT_N)
+        times["windowed_plane"] = multi_gpu_windowed(torch, group, REC1_N,
+                                                     out_dir)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(times, f)
     finally:
@@ -2232,11 +2672,12 @@ def _multi_gpu_rank(rank, world, store, out_dir):
 def phase_multi_gpu(torch):
     """TeraSort, WordCount, the keyed aggregate, grouped top-k, the hash
     and broadcast joins, the fused join+aggregate, the external sort, the
-    byte plane (``exchange_padded`` full and windowed, ``exchange_into``)
-    and ring and Ulysses attention over NCCL on min(cards, 4) cards, one
-    process per card, each rank against a one-card oracle; a failure
-    fails the run.  With one card nothing runs: NCCL refuses two ranks
-    on one GPU."""
+    byte plane (``exchange_padded`` full and windowed, ``exchange_into``),
+    ring and Ulysses attention and the windowed read plane (one executor
+    per card, :func:`multi_gpu_windowed`) over NCCL on min(cards, 4)
+    cards, one process per card, each rank against a one-card oracle; a
+    failure fails the run.  With one card nothing runs: NCCL refuses two
+    ranks on one GPU."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2261,7 +2702,10 @@ def phase_multi_gpu(torch):
           external_sort_buckets=MULTI_EXT_BUCKETS,
           byte_plane_pair_bytes=MULTI_PAIR_BYTES, byte_tile=BYTE_TILE,
           attention_heads=ATTN_N, attention_seq=ATTN_S,
-          attention_d_head=ATTN_D, seconds_max_over_ranks={k: max(t[k] for t in times)
+          attention_d_head=ATTN_D,
+          windowed_plane_records_per_rank=REC1_N,
+          windowed_plane=[t.pop("windowed_plane") for t in times],
+          seconds_max_over_ranks={k: max(t[k] for t in times)
                                   for k in times[0]}, correct=True)
 
 
@@ -2407,6 +2851,8 @@ def main(argv=None) -> int:
         phase_byte_plane(torch, dev)
         torch.cuda.empty_cache()
         phase_record_plane(torch, dev)
+        torch.cuda.empty_cache()
+        phase_device_read_plane(torch, dev)
         torch.cuda.empty_cache()
         scan_k["launches"] += phase_device_workloads(torch, _build, gen,
                                                      dev)

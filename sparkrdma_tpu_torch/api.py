@@ -19,12 +19,14 @@ write → publish → resolve → fetch → read shuffle path.
 Every manager runs on one device (``device=``, CUDA unless the caller
 asks for the CPU, and an error when CUDA is absent): on the host read
 plane each committed map output is a tensor there, and reducers fetch
-blocks from it as device-to-host copies.  Device-native workloads
-(TeraSorter / WordCounter / KeyedAggregator / the joiners / GroupedTopK)
-are exposed as ``ctx.device_sort`` / ``ctx.device_count`` / ... — the
-same split the reference has between its record plane and the NIC bulk
-plane.  The bulk and windowed read planes (``shuffle/bulk.py``) are not
-in this package yet: those ``readPlane`` values raise.
+blocks from it as device-to-host copies.  On the bulk and windowed read
+planes (``readPlane=bulk | windowed``; ``collective`` is rewritten to
+``windowed``) the executors' rows ride one co-located exchange on that
+device (``TileExchange.colocated``), the in-process counterpart of the
+JAX package's ``make_mesh(E)``.  Device-native workloads (TeraSorter /
+WordCounter / KeyedAggregator / the joiners / GroupedTopK) are exposed
+as ``ctx.device_sort`` / ``ctx.device_count`` / ... — the same split
+the reference has between its record plane and the NIC bulk plane.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ import numpy as np
 from sparkrdma_tpu_torch.conf import TpuShuffleConf
 from sparkrdma_tpu_torch.parallel.device import DeviceLike, resolve_device
 from sparkrdma_tpu_torch.shuffle.manager import (
-    NO_DEVICE_PLANE,
     Aggregator,
     ColumnarAggregator,
     TpuShuffleManager,
@@ -74,15 +75,21 @@ class TpuShuffleContext:
         if num_executors <= 0:
             raise ValueError("num_executors must be > 0")
         self.conf = conf or TpuShuffleConf()
-        if self.conf.read_plane in ("bulk", "windowed", "collective"):
-            raise NotImplementedError(
-                NO_DEVICE_PLANE.format(self.conf.read_plane)
-            )
         # every manager (driver and executors) runs on this device
         self.device = resolve_device(device)
+        if network is None and self.conf.read_plane == "collective":
+            # the opportunistic in-process coordinator is a test fixture
+            # of the JAX package: the windowed plane is reactive AND
+            # multi-process, so production configs route there
+            logger.warning(
+                "readPlane=collective is superseded by the unified "
+                "windowed plane; using readPlane=windowed"
+            )
+            self.conf.set("readPlane", "windowed")
         self.network = network if network is not None else LoopbackNetwork()
         # stage_to_device=None defers to TpuShuffleManager's
-        # plane-aware default
+        # plane-aware default (resolved from the conf AFTER the
+        # collective->windowed rewrite above)
         self.driver = TpuShuffleManager(
             self.conf, is_driver=True, network=self.network,
             port=self.conf.driver_port or base_port,
@@ -96,6 +103,36 @@ class TpuShuffleContext:
             )
             for i in range(num_executors)
         ]
+        if self.conf.read_plane == "windowed":
+            # in-process executors share ONE contribution barrier per
+            # window (one collective, every executor's row aboard) —
+            # across OS processes each manager's plane runs its own
+            # rank-local exchange and the collective itself is the
+            # barrier (parallel/multihost.py)
+            from sparkrdma_tpu_torch.shuffle.bulk import WindowedReadPlane
+
+            session = self._session()
+            for ex in self.executors:
+                ex.windowed_plane = WindowedReadPlane(ex, session=session)
+            if self.conf.lazy_staging:
+                # the ODP analog on the production plane: host-lazy
+                # commits, with ensure_staged/prefetch_shuffle faulting
+                # them into a per-executor arena on the context's device
+                # under the original mkey (reference useOdp + prefetch
+                # advise, RdmaShuffleConf.scala:68-83,
+                # RdmaMappedFile.java:158-168)
+                from sparkrdma_tpu_torch.memory.device_arena import (
+                    DeviceArena,
+                )
+
+                for ex in self.executors:
+                    if ex.device_arena is not None:
+                        continue
+                    arena = DeviceArena(
+                        self.conf.device_arena_bytes, self.device
+                    )
+                    ex.device_arena = arena
+                    ex.resolver.device_arena = arena
         self._pools = [
             ThreadPoolExecutor(
                 max_workers=tasks_per_executor,
@@ -220,18 +257,108 @@ class TpuShuffleContext:
         ])
         mbh = dict(maps_by_host)
 
-        def reduce_task(pid: int) -> List[Tuple[Any, Any]]:
-            ex = self.executors[pid % E]
-            reader = ex.get_reader(handle, pid, pid + 1, mbh)
-            return list(reader.read())
+        if self.conf.read_plane == "bulk":
+            out = self._bulk_reduce(handle, shuffle_id)
+        else:
+            if self.conf.read_plane == "windowed":
+                # symmetric participation: an executor owning no
+                # partition of this shuffle still joins every window's
+                # collective
+                for ex in self.executors:
+                    if ex.windowed_plane is not None:
+                        ex.windowed_plane.join(shuffle_id)
 
-        out = self._run_tasks([
-            (p % E, (lambda p=p: reduce_task(p)))
-            for p in range(partitioner.num_partitions)
-        ])
+            def reduce_task(pid: int) -> List[Tuple[Any, Any]]:
+                ex = self.executors[pid % E]
+                reader = ex.get_reader(handle, pid, pid + 1, mbh)
+                return list(reader.read())
+
+            out = self._run_tasks([
+                (p % E, (lambda p=p: reduce_task(p)))
+                for p in range(partitioner.num_partitions)
+            ])
         self.driver.unregister_shuffle(shuffle_id)
         for ex in self.executors:
             ex.unregister_shuffle(shuffle_id)
+        return out
+
+    def _session(self):
+        """One contribution barrier over a co-located exchange of the E
+        executors on the context's device (the JAX ``make_mesh(E)``
+        session).  Destination rows recycle through a staging pool (the
+        executors share one process, so any executor's pool serves;
+        release rides view GC): the exchange fills them on the host from
+        its pinned staging buffers (``shuffle/bulk.py``)."""
+        from sparkrdma_tpu_torch.parallel.exchange import TileExchange
+        from sparkrdma_tpu_torch.shuffle.bulk import BulkShuffleSession
+
+        E = len(self.executors)
+        return BulkShuffleSession(
+            TileExchange.from_conf(self.conf, colocated=E,
+                                   device=self.device),
+            E,
+            timeout_s=self.conf.bulk_barrier_timeout_ms / 1000.0,
+            out_alloc=self.executors[0].staging_pool.alloc_gc,
+            window_rounds=self.conf.device_exchange_window_rounds,
+        )
+
+    def _bulk_reduce(self, handle, shuffle_id: int) -> List[List]:
+        """readPlane=bulk: one plan barrier + ONE symmetric collective
+        moves every stream (shuffle/bulk.py), then the read-side
+        aggregate/sort stage runs per partition — the columnar
+        vectorized kernels when the serializer supports them, exactly
+        like the pull readers.  Executor order == canonical host order
+        (ascending ports), so partition p belongs to executor p % E
+        exactly like the pull path above."""
+        from sparkrdma_tpu_torch.shuffle.bulk import BulkExchangeReader
+        from sparkrdma_tpu_torch.shuffle.reader import (
+            postprocess_column_batches,
+            postprocess_records,
+        )
+
+        E = len(self.executors)
+        session = self._session()
+
+        def bulk_task(i: int):
+            ex = self.executors[i]
+            reader = BulkExchangeReader(ex, session=session)
+            agg = handle.aggregator
+            columnar = getattr(
+                ex.serializer, "supports_columns", False
+            ) and (agg is None or isinstance(agg, ColumnarAggregator))
+            try:
+                if columnar:
+                    deser = ex.serializer.deserialize_columns
+                    per_part: Dict[int, list] = {}
+                    for rid, block in reader.read_partitioned_blocks(
+                        shuffle_id
+                    ):
+                        per_part.setdefault(rid, []).extend(deser(block))
+                    return {
+                        p: list(postprocess_column_batches(bs, handle))
+                        for p, bs in per_part.items()
+                    }
+                parts = reader.read_partitioned(shuffle_id)
+                return {
+                    p: list(postprocess_records(iter(recs), handle))
+                    for p, recs in parts.items()
+                }
+            except BaseException as e:
+                # poison the barrier: peers fail NOW instead of riding
+                # out the 120s contribution timeout (and ctx.stop()
+                # hanging on their pool threads)
+                session.abort(e)
+                raise
+
+        results = self._run_tasks([
+            (i, (lambda i=i: bulk_task(i))) for i in range(E)
+        ])
+        out: List[List] = [
+            [] for _ in range(handle.partitioner.num_partitions)
+        ]
+        for res in results:
+            for p, recs in res.items():
+                out[p] = recs
         return out
 
     def stop(self) -> None:

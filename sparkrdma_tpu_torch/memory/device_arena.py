@@ -205,8 +205,15 @@ class DeviceStagingBridge:
     through a bounce buffer at a fraction of it).  Counter
     ``device_exchange_h2d_bytes_avoided_total`` tracks the host fill
     traffic the padded layout eliminated.  On the CPU rows are plain
-    numpy.  (Pool-backed rows, ``memory/staging.py``, come with the
-    record-level shuffle.)
+    numpy.
+
+    ``pool`` (a :class:`~sparkrdma_tpu_torch.memory.staging.StagingPool`)
+    makes :meth:`alloc_row` hand out pooled rows instead, as the JAX
+    bridge does: recycled when the last view of them dies, and plain
+    numpy (counted under ``exchange_row_pool_fallbacks_total``) when the
+    pool's budget is spent.  Pool rows are pageable host memory, so on a
+    card a copy to or from one runs through the driver's bounce buffer;
+    the read planes keep pinned rows there (``shuffle/bulk.py``).
 
     Framing helper ``as_words`` keeps the layout rule in ONE place:
     rows are uint8, lane-aligned to the exchange's ``TILE_ALIGN``, and
@@ -215,8 +222,9 @@ class DeviceStagingBridge:
 
     WORD = 4  # collective element width: 4-byte words over uint8 lanes
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, pool=None):
         self.device = resolve_device(device)
+        self.pool = pool
 
     # -- framing ------------------------------------------------------------
     @staticmethod
@@ -235,19 +243,26 @@ class DeviceStagingBridge:
 
     # -- staging rows -------------------------------------------------------
     def alloc_row(self, nbytes: int) -> np.ndarray:
-        """One uint8 staging row of ``nbytes``: pinned on a card (a
-        numpy view that keeps its pinned tensor alive), plain numpy on
-        the CPU."""
+        """One uint8 staging row of ``nbytes``: a pooled row when the
+        bridge has a pool, else pinned on a card (a numpy view that
+        keeps its pinned tensor alive) and plain numpy on the CPU."""
+        if self.pool is not None:
+            from sparkrdma_tpu_torch.memory.staging import alloc_row_gc
+
+            return alloc_row_gc(
+                self.pool, nbytes, "exchange_row_pool_fallbacks_total"
+            )
         if nbytes <= 0:
             return np.empty(0, np.uint8)
         return host_bytes(self.device, nbytes).numpy()
 
     # -- H2D ---------------------------------------------------------------
     def to_device(self, row: np.ndarray, device,
-                  avoided_bytes: int = 0) -> torch.Tensor:
-        """Copy one host row onto ``device``; returns the device tensor
-        (a copy, never a view of ``row``), with the copy done, so the
-        row is free again on return.  ``avoided_bytes`` reports
+                  avoided_bytes: int = 0, out=None) -> torch.Tensor:
+        """Copy one host row onto ``device`` (into ``out`` when given, a
+        device tensor of the row's size and type); returns the device
+        tensor (a copy, never a view of ``row``), with the copy done, so
+        the row is free again on return.  ``avoided_bytes`` reports
         how many bytes of host staging-matrix fill the padded layout
         made unnecessary for this row — the bridge's whole reason to
         exist, so it is counted here at the seam."""
@@ -257,4 +272,6 @@ class DeviceStagingBridge:
             counter("device_exchange_h2d_bytes_avoided_total").inc(
                 avoided_bytes
             )
+        if out is not None:
+            return out.copy_(torch.from_numpy(row))
         return torch.from_numpy(row).to(device, copy=True)

@@ -48,6 +48,18 @@ after the CUDA event of its copy has completed.
   collective; ``on_round`` fires once round r's event has completed.
 - :meth:`TileExchange.a2a`: a ``[D, C]`` tensor already on the card.
 
+The co-located mode (:meth:`TileExchange.is_colocated`) is the port's
+counterpart of the JAX single controller: E ranks live in ONE process
+on one device, every source row is local and every destination row is
+addressable, and JAX's ``all_to_all`` over E mesh devices becomes a
+permutation of the stacked rows on the device,
+``[E_src, E_dst, cols] -> [E_dst, E_src, cols]``: the rows go to the
+device, one ``transpose(0, 1).contiguous()`` permutes them there, and
+the result comes back into pinned host memory.  Nothing in this mode
+calls a group collective.  The in-process read planes
+(``shuffle/bulk.py`` through ``TpuShuffleContext``) run over it, as the
+JAX package runs them over ``make_mesh(E)``.
+
 4-byte words ride the collective as an int32 view (bit-identical),
 other buffers as uint8; the ranks agree on the choice
 (``ExchangeGroup.agree_max``), so the collective's shape never differs
@@ -72,7 +84,7 @@ from sparkrdma_tpu_torch.memory.device_arena import (
     host_bytes,
 )
 from sparkrdma_tpu_torch.metrics import counter
-from sparkrdma_tpu_torch.parallel.device import DeviceLike
+from sparkrdma_tpu_torch.parallel.device import DeviceLike, resolve_device
 from sparkrdma_tpu_torch.parallel.group import ExchangeGroup
 from sparkrdma_tpu_torch.transport.channel import TransportError
 
@@ -365,8 +377,13 @@ class TileExchange:
     ``group`` is an :class:`ExchangeGroup`, a ``torch.distributed``
     process group (wrapped on ``device``), or None: a world of one on
     ``device`` (CUDA unless the caller passes ``device="cpu"``; without
-    CUDA it raises).
+    CUDA it raises).  :meth:`colocated` builds the single-process mode
+    over E ranks instead.
     """
+
+    # True for the single-process mode (every source row local, every
+    # destination row addressable), see :meth:`colocated`
+    is_colocated = False
 
     def __init__(
         self,
@@ -394,16 +411,39 @@ class TileExchange:
         self.device_exchanges = 0
 
     @classmethod
-    def from_conf(cls, conf, group=None) -> "TileExchange":
+    def colocated(cls, n_ranks: int, device: DeviceLike = None,
+                  tile_bytes: int = 4 << 20, max_rounds_in_flight: int = 2,
+                  verify_integrity: bool = False) -> "TileExchange":
+        """The co-located mode: ``n_ranks`` ranks in this one process on
+        ``device`` (CUDA unless the caller passes ``device="cpu"``), the
+        counterpart of the JAX ``TileExchange(make_mesh(n_ranks))``.
+        Every method takes all the rows it vouches for in one call and
+        returns every destination row."""
+        return ColocatedTileExchange(
+            n_ranks, device=device, tile_bytes=tile_bytes,
+            max_rounds_in_flight=max_rounds_in_flight,
+            verify_integrity=verify_integrity,
+        )
+
+    @classmethod
+    def from_conf(cls, conf, group=None, colocated: int = 0,
+                  device: DeviceLike = None) -> "TileExchange":
         """Build from a conf object (``TpuShuffleConf``, duck-typed):
         wires ``exchange_tile_bytes``, ``exchange_max_rounds_in_flight``
-        and ``verify_exchange_integrity``."""
-        return cls(
-            group,
+        and ``verify_exchange_integrity``.  ``colocated=E`` builds the
+        co-located mode over E ranks on ``device`` (``group`` must then
+        be None); otherwise the exchange runs over ``group`` (a
+        process group is wrapped on ``device``)."""
+        kw = dict(
             tile_bytes=conf.exchange_tile_bytes,
             max_rounds_in_flight=conf.exchange_max_rounds_in_flight,
             verify_integrity=conf.verify_exchange_integrity,
         )
+        if colocated:
+            if group is not None:
+                raise ValueError("a co-located exchange takes no group")
+            return cls.colocated(colocated, device=device, **kw)
+        return cls(group, device=device, **kw)
 
     # -- planning -----------------------------------------------------------
     def plan(self, lengths: np.ndarray) -> ExchangePlan:
@@ -422,6 +462,90 @@ class TileExchange:
 
     def _result(self, rows, filled) -> HostLocalStreams:
         return HostLocalStreams(rows, frozenset(filled), self.rank)
+
+    def _vouched(self, local_sources) -> frozenset:
+        """The source rows a caller vouches for (default: this rank's)."""
+        return frozenset({self.rank}) if local_sources is None \
+            else frozenset(local_sources)
+
+    def _check_streams(self, streams, lengths, local_sources):
+        """``streams`` against the given ``lengths`` ``[D, D]``: only
+        sources outside ``local_sources`` may omit their data; a vouched
+        empty row with a nonzero length is a caller bug that would
+        silently exchange zeros."""
+        D = self.n_devices
+        lengths = np.asarray(lengths, dtype=np.int64)
+        if lengths.shape != (D, D):
+            raise ValueError(
+                f"lengths must be [{D}, {D}], got {lengths.shape}"
+            )
+        vouched = self._vouched(local_sources)
+        for s in range(D):
+            for d in range(D):
+                n = len(streams[s][d])
+                if (n or s in vouched) and n != int(lengths[s, d]):
+                    raise ValueError(
+                        f"stream [{s}][{d}] is {n}B but lengths says "
+                        f"{int(lengths[s, d])}B (only rows outside "
+                        f"local_sources may be empty)"
+                    )
+        return lengths
+
+    def _contig_sources(self, lengths, src_rows, local_sources):
+        """The vouched contiguous source rows, each checked against its
+        lengths row: ``({s: uint8 row}, {s: row_offsets})``."""
+        src: Dict[int, np.ndarray] = {}
+        src_offs: Dict[int, np.ndarray] = {}
+        for s in sorted(self._vouched(local_sources)):
+            row = src_rows[s] if not hasattr(src_rows, "get") \
+                else src_rows.get(s)
+            if row is None:
+                raise ValueError(f"no source row for vouched source {s}")
+            arr = row if isinstance(row, np.ndarray) \
+                else np.frombuffer(row, np.uint8)
+            if arr.dtype != np.uint8 or arr.ndim != 1:
+                raise ValueError(
+                    f"source row {s} must be a flat uint8 buffer, got "
+                    f"{arr.dtype} ndim={arr.ndim}"
+                )
+            need = int(lengths[s].sum())
+            if arr.shape[0] != need:
+                raise ValueError(
+                    f"source row {s} is {arr.shape[0]}B but its lengths "
+                    f"row sums to {need}B"
+                )
+            src[s] = arr
+            src_offs[s] = row_offsets(lengths[s])
+        return src, src_offs
+
+    def _padded_sources(self, src_rows, local_sources, C: int):
+        """The vouched sources as :class:`PaddedSourceRow` framed for
+        ``C`` columns (a flat buffer is framed here), each checked to be
+        flat uint8 ``[D * C]``."""
+        D = self.n_devices
+        src: Dict[int, PaddedSourceRow] = {}
+        for s in sorted(self._vouched(local_sources)):
+            row = src_rows[s] if not hasattr(src_rows, "get") \
+                else src_rows.get(s)
+            if row is None:
+                raise ValueError(f"no source row for vouched source {s}")
+            if not isinstance(row, PaddedSourceRow):
+                arr = row if isinstance(row, np.ndarray) \
+                    else np.frombuffer(row, np.uint8)
+                row = PaddedSourceRow(arr, C)
+            if row.cols != C:
+                raise ValueError(
+                    f"source row {s} framed for cols={row.cols}, "
+                    f"plan needs {C}"
+                )
+            if row.buf.dtype != np.uint8 or row.buf.ndim != 1 \
+                    or row.buf.shape[0] != D * C:
+                raise ValueError(
+                    f"source row {s} must be flat uint8 [{D * C}], got "
+                    f"{row.buf.dtype} shape={row.buf.shape}"
+                )
+            src[s] = row
+        return src
 
     # -- host-driven byte exchange ------------------------------------------
     def exchange_bytes(
@@ -455,22 +579,7 @@ class TileExchange:
                                dtype=torch.int64, device=self.device)
             lengths = self.group.all_gather(own).cpu().numpy().reshape(D, D)
         else:
-            lengths = np.asarray(lengths, dtype=np.int64)
-            if lengths.shape != (D, D):
-                raise ValueError(
-                    f"lengths must be [{D}, {D}], got {lengths.shape}"
-                )
-            if local_sources is None:
-                local_sources = frozenset({self.rank})
-            for s in range(D):
-                for d in range(D):
-                    n = len(streams[s][d])
-                    if (n or s in local_sources) and n != int(lengths[s, d]):
-                        raise ValueError(
-                            f"stream [{s}][{d}] is {n}B but lengths says "
-                            f"{int(lengths[s, d])}B (only rows outside "
-                            f"local_sources may be empty)"
-                        )
+            lengths = self._check_streams(streams, lengths, local_sources)
         plan = self.plan(lengths)
         if plan.rounds == 0:
             return [[b""] * D for _ in range(D)]
@@ -543,30 +652,8 @@ class TileExchange:
         on a card, ``np.empty`` on the CPU)."""
         D = self.n_devices
         lengths = self._check_lengths(lengths)
-        if local_sources is None:
-            local_sources = frozenset({self.rank})
-        src: Dict[int, np.ndarray] = {}
-        src_offs: Dict[int, np.ndarray] = {}
-        for s in sorted(local_sources):
-            row = src_rows[s] if not hasattr(src_rows, "get") \
-                else src_rows.get(s)
-            if row is None:
-                raise ValueError(f"no source row for vouched source {s}")
-            arr = row if isinstance(row, np.ndarray) \
-                else np.frombuffer(row, np.uint8)
-            if arr.dtype != np.uint8 or arr.ndim != 1:
-                raise ValueError(
-                    f"source row {s} must be a flat uint8 buffer, got "
-                    f"{arr.dtype} ndim={arr.ndim}"
-                )
-            need = int(lengths[s].sum())
-            if arr.shape[0] != need:
-                raise ValueError(
-                    f"source row {s} is {arr.shape[0]}B but its lengths "
-                    f"row sums to {need}B"
-                )
-            src[s] = arr
-            src_offs[s] = row_offsets(lengths[s])
+        src, src_offs = self._contig_sources(lengths, src_rows,
+                                             local_sources)
 
         plan = self.plan(lengths)
         col_offs = [row_offsets(lengths[:, d]) for d in range(D)]
@@ -660,8 +747,6 @@ class TileExchange:
         same consumer protocol as the host-staged path."""
         D = self.n_devices
         lengths = self._check_lengths(lengths)  # plan metadata
-        if local_sources is None:
-            local_sources = frozenset({self.rank})
         plan = self.plan(lengths)
         C = plan.total_cols
         if plan.rounds == 0:
@@ -671,28 +756,7 @@ class TileExchange:
             ]
             return self._result(rows, range(D))
 
-        src: Dict[int, PaddedSourceRow] = {}
-        for s in sorted(local_sources):
-            row = src_rows[s] if not hasattr(src_rows, "get") \
-                else src_rows.get(s)
-            if row is None:
-                raise ValueError(f"no source row for vouched source {s}")
-            if not isinstance(row, PaddedSourceRow):
-                arr = row if isinstance(row, np.ndarray) \
-                    else np.frombuffer(row, np.uint8)
-                row = PaddedSourceRow(arr, C)
-            if row.cols != C:
-                raise ValueError(
-                    f"source row {s} framed for cols={row.cols}, "
-                    f"plan needs {C}"
-                )
-            if row.buf.dtype != np.uint8 or row.buf.ndim != 1 \
-                    or row.buf.shape[0] != D * C:
-                raise ValueError(
-                    f"source row {s} must be flat uint8 [{D * C}], got "
-                    f"{row.buf.dtype} shape={row.buf.shape}"
-                )
-            src[s] = row
+        src = self._padded_sources(src_rows, local_sources, C)
 
         # word framing: every vouched row of every rank must sustain the
         # 4-byte view, or the whole exchange ships uint8 lanes — the
@@ -899,3 +963,347 @@ class TileExchange:
             "integrity_failures": self.integrity_failures,
             "device_exchanges": self.device_exchanges,
         }
+
+
+class ColocatedTileExchange(TileExchange):
+    """The co-located mode of :class:`TileExchange` (build it with
+    :meth:`TileExchange.colocated`): ``n_ranks`` ranks in one process on
+    one device.  Every source this caller vouches for (default: all)
+    rides one call, unvouched rows ship zeros, and every destination row
+    is returned, as the JAX single controller does over a mesh of E
+    devices.  Each collective is a permutation of the stacked rows on
+    the device (``[E_src, E_dst, cols] -> [E_dst, E_src, cols]``); the
+    host reads a received buffer only after its copy's event."""
+
+    is_colocated = True
+
+    def __init__(self, n_ranks: int, device: DeviceLike = None,
+                 tile_bytes: int = 4 << 20, max_rounds_in_flight: int = 2,
+                 verify_integrity: bool = False):
+        if int(n_ranks) < 1:
+            raise ValueError(f"n_ranks must be >= 1, got {n_ranks}")
+        self.group = None
+        self.device = resolve_device(device)
+        self.rank = None  # every rank is local
+        self.n_devices = int(n_ranks)
+        self.tile_bytes = int(tile_bytes)
+        self.max_rounds_in_flight = max(1, int(max_rounds_in_flight))
+        self.verify_integrity = verify_integrity
+        self.rounds_executed = 0
+        self.payload_bytes_moved = 0
+        self.padded_bytes_moved = 0
+        self.integrity_failures = 0
+        self.device_exchanges = 0
+
+    def _vouched(self, local_sources) -> frozenset:
+        return frozenset(range(self.n_devices)) if local_sources is None \
+            else frozenset(local_sources)
+
+    # -- host-driven byte exchange ------------------------------------------
+    def exchange_bytes(
+        self, streams: Sequence[Sequence[bytes]],
+        lengths: Optional[np.ndarray] = None,
+        local_sources: Optional[frozenset] = None,
+    ):
+        """Move ``streams[s][d]`` -> ``out[d][s]`` for every pair; returns
+        the plain ``[D][S]`` lists.  With ``lengths``, rows outside
+        ``local_sources`` (default: all) may be empty and ship zeros."""
+        D = self.n_devices
+        if len(streams) != D or any(len(row) != D for row in streams):
+            raise ValueError(
+                f"streams must be [{D}][{D}], got "
+                f"[{len(streams)}][{[len(r) for r in streams]}]"
+            )
+        if lengths is None:
+            lengths = np.array(
+                [[len(streams[s][d]) for d in range(D)] for s in range(D)],
+                dtype=np.int64,
+            )
+        else:
+            lengths = self._check_streams(streams, lengths, local_sources)
+        plan = self.plan(lengths)
+        if plan.rounds == 0:
+            return [[b""] * D for _ in range(D)]
+
+        col_offs = [row_offsets(lengths[:, d]) for d in range(D)]
+        dst_rows: Dict[int, np.ndarray] = {}
+
+        def get_dst(d: int) -> np.ndarray:
+            buf = dst_rows.get(d)
+            if buf is None:
+                buf = dst_rows[d] = host_bytes(
+                    self.device, int(lengths[:, d].sum())).numpy()
+            return buf
+
+        def fill(r: int, mat: np.ndarray) -> None:
+            lo, hi = plan.round_slice(r)
+            for s in range(D):
+                for d in range(D):
+                    n = 0
+                    take = min(hi, int(lengths[s, d])) - lo
+                    if take > 0:
+                        chunk = memoryview(streams[s][d])[lo : lo + take]
+                        n = len(chunk)
+                        if n:
+                            mat[s, d, :n] = np.frombuffer(chunk, np.uint8)
+                    mat[s, d, n:] = 0  # pad spans ship zeros
+
+        collect = _make_row_collect(plan, lengths, col_offs, get_dst)
+        filled_dsts = self._run_tile_rounds(plan, fill, collect)
+        result = [
+            [
+                bytes(memoryview(
+                    dst_rows[d][col_offs[d][s]:col_offs[d][s + 1]]
+                ))
+                for s in range(D)
+            ]
+            for d in range(D)
+        ]
+        if self.verify_integrity:
+            self._verify(streams, result, filled_dsts,
+                         self._vouched(local_sources))
+        return result
+
+    def exchange_into(
+        self,
+        lengths: np.ndarray,
+        src_rows,
+        local_sources: Optional[frozenset] = None,
+        out_alloc=None,
+    ) -> HostLocalStreams:
+        """Zero-copy exchange over the contiguous rows of every vouched
+        source (``local_sources``, default all; each laid out per
+        ``lengths[s]``).  Returns every destination row as a
+        :class:`DestRowView` over one buffer from ``out_alloc(nbytes)``
+        (default: pinned host memory on a card, ``np.empty`` on the
+        CPU)."""
+        D = self.n_devices
+        lengths = self._check_lengths(lengths)
+        src, src_offs = self._contig_sources(lengths, src_rows,
+                                             local_sources)
+
+        plan = self.plan(lengths)
+        col_offs = [row_offsets(lengths[:, d]) for d in range(D)]
+        alloc = out_alloc if out_alloc is not None else (
+            lambda n: host_bytes(self.device, n).numpy()
+        )
+        dst_rows: Dict[int, np.ndarray] = {}
+
+        def get_dst(d: int) -> np.ndarray:
+            buf = dst_rows.get(d)
+            if buf is None:
+                n = int(lengths[:, d].sum())
+                buf = np.empty(0, np.uint8) if n == 0 else alloc(n)[:n]
+                dst_rows[d] = buf
+            return buf
+
+        if plan.rounds == 0:
+            rows = [
+                DestRowView(get_dst(d), col_offs[d]) for d in range(D)
+            ]
+            return self._result(rows, range(D))
+
+        def fill(r: int, mat: np.ndarray) -> None:
+            lo, hi = plan.round_slice(r)
+            for s in range(D):
+                row = src.get(s)
+                for d in range(D):
+                    take = 0
+                    if row is not None:
+                        take = max(0, min(hi, int(lengths[s, d])) - lo)
+                        o = int(src_offs[s][d]) + lo
+                        mat[s, d, :take] = row[o : o + take]
+                    mat[s, d, take:] = 0  # pad spans ship zeros
+
+        collect = _make_row_collect(plan, lengths, col_offs, get_dst)
+        filled_dsts = self._run_tile_rounds(plan, fill, collect)
+        sent = sum(int(lengths[s].sum()) for s in src)
+        received = sum(int(lengths[:, d].sum()) for d in filled_dsts)
+        counter("exchange_copy_bytes_avoided_total").inc(
+            sent + 2 * received
+        )
+        rows = [DestRowView(get_dst(d), col_offs[d]) for d in range(D)]
+        if self.verify_integrity:
+            self._verify_rows(src, src_offs, rows, filled_dsts, lengths)
+        return self._result(rows, filled_dsts)
+
+    # -- device-native padded exchange --------------------------------------
+    def exchange_padded(
+        self,
+        lengths: np.ndarray,
+        src_rows,
+        local_sources: Optional[frozenset] = None,
+        out_alloc=None,
+        on_round=None,
+        window_rounds: int = 0,
+    ) -> HostLocalStreams:
+        """Device-native exchange over the :class:`PaddedSourceRow` of
+        every vouched source: each row goes to its row of one ``[E, E *
+        C]`` device tensor in one copy (unvouched rows are zeros), the
+        device permutes it to ``[E_dst, E_src, C]``, and the received
+        rows come back into pinned host memory.
+
+        - ``window_rounds <= 0`` (or a single-round plan): one
+          permutation of the whole tensor and one copy back into a
+          pinned ``[E, E, C]`` matrix that the views keep alive
+          (``out_alloc`` is ignored); ``on_round(0, 0, C, rows)`` fires
+          once.
+        - ``window_rounds > 0``: round ``r`` permutes its column range
+          of the one resident tensor, its copy back runs on a copy
+          stream, at most ``window_rounds`` rounds in flight; landed
+          tiles go into one ``out_alloc`` matrix per destination and
+          ``on_round(r, lo, hi, rows)`` fires after each landing."""
+        D = self.n_devices
+        lengths = self._check_lengths(lengths)  # plan metadata
+        plan = self.plan(lengths)
+        C = plan.total_cols
+        if plan.rounds == 0:
+            empty = np.zeros((D, 0), np.uint8)
+            rows = [
+                PaddedDestRowView(empty, lengths[:, d]) for d in range(D)
+            ]
+            return self._result(rows, range(D))
+
+        src = self._padded_sources(src_rows, local_sources, C)
+
+        # word framing: every vouched row must sustain the 4-byte view,
+        # or the whole exchange ships uint8 lanes
+        words = {s: DeviceStagingBridge.as_words(pr.buf)
+                 for s, pr in src.items()}
+        use_words = all(w is not None for w in words.values())
+        itemsize = WORD if use_words else 1
+        elem = torch.int32 if use_words else torch.uint8
+        C_e = C // itemsize
+
+        bridge = DeviceStagingBridge(self.device)
+        x = torch.empty((D, D * C_e), dtype=elem, device=self.device)
+        for s in range(D):
+            if s not in src:
+                x[s].zero_()  # unvouched sources ship zeros
+                continue
+            row_e = words[s].view(np.int32) if use_words else src[s].buf
+            # the host-staged path would have copied this row's payload
+            # through D * C bytes of per-round staging matrix
+            bridge.to_device(row_e, self.device, D * C, out=x[s])
+
+        link = _Link(self.device)
+        if window_rounds <= 0 or plan.rounds <= 1:
+            y = x.view(D, D, C_e).transpose(0, 1).contiguous()
+            host = host_bytes(self.device, (D, D, C))
+            link.wait(link.to_host(host.view(elem), y))
+            mats = host.numpy()
+            rows = [
+                PaddedDestRowView(mats[d], lengths[:, d], keepalive=host)
+                for d in range(D)
+            ]
+            self.rounds_executed += 1
+            if on_round is not None:
+                on_round(0, 0, C, rows)
+        else:
+            alloc = out_alloc if out_alloc is not None else (
+                lambda n: host_bytes(self.device, n).numpy()
+            )
+            mats = [alloc(D * C)[: D * C].reshape(D, C) for _ in range(D)]
+            rows = [PaddedDestRowView(mats[d], lengths[:, d])
+                    for d in range(D)]
+            window = max(1, int(window_rounds))
+            tiles = x.view(D, D, plan.rounds, plan.tile_bytes // itemsize)
+            stage = [host_bytes(self.device, (D, D, plan.tile_bytes))
+                     for _ in range(min(window, plan.rounds))]
+            inflight: deque = deque()
+
+            def collect(r, slot, done):
+                link.wait(done)
+                lo, hi = plan.round_slice(r)
+                got = stage[slot].numpy()
+                for d in range(D):
+                    mats[d][:, lo:hi] = got[d]
+                self.rounds_executed += 1
+                if on_round is not None:
+                    on_round(r, lo, hi, rows)
+
+            for r in range(plan.rounds):
+                slot = r % len(stage)
+                y = tiles[:, :, r].transpose(0, 1).contiguous()
+                inflight.append(
+                    (r, slot, link.to_host(stage[slot].view(elem), y)))
+                if len(inflight) >= window:
+                    collect(*inflight.popleft())
+            while inflight:
+                collect(*inflight.popleft())
+
+        if self.verify_integrity:
+            for d in range(D):
+                for s in sorted(src):
+                    n = int(lengths[s, d])
+                    sent = src[s].stream(d, n)
+                    got = rows[d][s]
+                    if not np.array_equal(got, sent):
+                        self.integrity_failures += 1
+                        raise ExchangeIntegrityError(
+                            s, d,
+                            zlib.crc32(memoryview(sent)),
+                            zlib.crc32(memoryview(got)),
+                        )
+        sent = sum(int(lengths[s].sum()) for s in src)
+        counter("exchange_copy_bytes_avoided_total").inc(
+            sent + 2 * int(lengths.sum())
+        )
+        self.device_exchanges += 1
+        self.payload_bytes_moved += plan.payload_bytes
+        self.padded_bytes_moved += plan.moved_bytes
+        return self._result(rows, range(D))
+
+    def _run_tile_rounds(self, plan: ExchangePlan, fill_round,
+                         collect_round) -> set:
+        """The tile-round engine of the co-located mode:
+        ``fill_round(r, mat)`` writes every byte of round ``r``'s ``[E,
+        E, tile]`` host matrix, the device permutes it, and
+        ``collect_round(r, d, local)`` consumes destination ``d``'s
+        received ``[S, tile]`` slab.  Rounds collect FIFO, at most
+        ``max_rounds_in_flight`` in flight, and a round's host buffers
+        are reused only after its copy back has completed.  Returns
+        every destination."""
+        D = self.n_devices
+        link = _Link(self.device)
+        slots = min(self.max_rounds_in_flight, plan.rounds)
+        send, recv = ([host_bytes(self.device, (D, D, plan.tile_bytes))
+                       for _ in range(slots)] for _ in range(2))
+        inflight: deque = deque()
+
+        def collect(r, slot, done):
+            link.wait(done)
+            got = recv[slot].numpy()
+            for d in range(D):
+                collect_round(r, d, got[d])
+
+        for r in range(plan.rounds):
+            slot = r % slots
+            fill_round(r, send[slot].numpy())
+            x = link.to_device(send[slot]).view(torch.int32)
+            y = x.transpose(0, 1).contiguous()
+            inflight.append(
+                (r, slot, link.to_host(recv[slot].view(torch.int32), y)))
+            self.rounds_executed += 1
+            if len(inflight) >= self.max_rounds_in_flight:
+                collect(*inflight.popleft())
+        while inflight:
+            collect(*inflight.popleft())
+        self.payload_bytes_moved += plan.payload_bytes
+        self.padded_bytes_moved += plan.moved_bytes
+        return set(range(D))
+
+    # -- on-device exchange (tensors already on the device) ------------------
+    def a2a(self, x, donate: bool = False) -> torch.Tensor:
+        """All-to-all a ``[D, D, C]`` array (a numpy array or a tensor
+        elsewhere is moved to the device first): returns ``[D, S, C]``
+        on the device with ``out[d, s] = x[s, d]``, the JAX ``a2a``.
+        ``donate`` changes nothing here: the permutation always writes
+        a new tensor."""
+        D = self.n_devices
+        if x.ndim != 3 or x.shape[0] != D or x.shape[1] != D:
+            raise ValueError(
+                f"expected [D={D}, D, C] array, got {tuple(x.shape)}")
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(self.device).transpose(0, 1).contiguous()

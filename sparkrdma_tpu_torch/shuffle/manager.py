@@ -99,13 +99,6 @@ logger = logging.getLogger(__name__)
 # (e.g. a publisher's hello has not landed yet) — keep waiters queued
 _PLAN_WAIT = object()
 
-# the device read planes (readPlane=windowed and bulk) live in
-# shuffle/bulk.py, which this package does not have yet
-NO_DEVICE_PLANE = (
-    "readPlane={} needs shuffle/bulk.py (the bulk and windowed device "
-    "read planes), which the port does not have yet; use readPlane=host"
-)
-
 # driver keeps per-shuffle telemetry for this many recent shuffles
 _TELEMETRY_KEEP = 64
 
@@ -1876,7 +1869,13 @@ class TpuShuffleManager(StateMachine):
         manifest)."""
         self._qos_bind(handle)
         if self.conf.read_plane == "windowed":
-            raise NotImplementedError(NO_DEVICE_PLANE.format("windowed"))
+            from sparkrdma_tpu_torch.shuffle.bulk import WindowedReadPlane
+
+            if self.windowed_plane is None:
+                self.windowed_plane = WindowedReadPlane(self)
+            return self.windowed_plane.reader(
+                handle, start_partition, end_partition
+            )
         from sparkrdma_tpu_torch.shuffle.reader import ShuffleReader
 
         return ShuffleReader(
@@ -2092,9 +2091,18 @@ class TpuShuffleManager(StateMachine):
         return {"per_host": per_host, "total": total}
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
-        if self.windowed_plane is not None:
-            # the windowed plane's telemetry fold and forget hooks
-            raise NotImplementedError(NO_DEVICE_PLANE.format("windowed"))
+        if self.windowed_plane is not None and self.conf.metrics_enabled:
+            # fold the zero-copy plane's window landings into the
+            # shuffle's telemetry before it ships to the driver
+            evs = self.windowed_plane.window_events(shuffle_id)
+            if evs:
+                self._telemetry_add(
+                    shuffle_id,
+                    exchange_windows=len(evs),
+                    exchange_window_payload_bytes=sum(
+                        b for _w, _t, b in evs
+                    ),
+                )
         self._publish_shuffle_telemetry(shuffle_id)
         if (self.conf.metrics_enabled and self.conf.trace
                 and self.conf.metrics_trace_bridge):
@@ -2105,6 +2113,8 @@ class TpuShuffleManager(StateMachine):
         # resolver's arena.release_shuffle sweep must not find them
         self.push_merger.remove_shuffle(shuffle_id)
         self.resolver.remove_shuffle(shuffle_id)
+        if self.windowed_plane is not None:
+            self.windowed_plane.forget(shuffle_id)
         with self._plan_lock:
             self._plan_cache.pop(shuffle_id, None)
             self._shuffle_epoch.pop(shuffle_id, None)

@@ -631,3 +631,118 @@ def test_context_device_count_launches_flagged_scan(cuda_device):
         launched = _build.launch_counts()["flagged_scan"]
     assert launched >= 1
     assert got == {int(k): int(v) for k, v in want.items()}
+
+
+def _colocated_run(device, window):
+    """Every case of the co-located exchange on ``device``: the received
+    rows of exchange_bytes, exchange_into and exchange_padded (full and
+    windowed), the a2a, and the stats."""
+    from sparkrdma_tpu_torch.parallel.exchange import (
+        PaddedSourceRow,
+        TileExchange,
+    )
+
+    D = 4
+    rng = np.random.default_rng(12)
+    lengths = rng.integers(0, 300_000, size=(D, D)).astype(np.int64)
+    streams = [[rng.bytes(int(lengths[s, d])) for d in range(D)]
+               for s in range(D)]
+    ex = TileExchange.colocated(D, device=device, tile_bytes=64 << 10,
+                                verify_integrity=True)
+    out = {"bytes": ex.exchange_bytes(streams)}
+    rows = {s: np.frombuffer(b"".join(streams[s]), np.uint8).copy()
+            for s in range(D)}
+    got = ex.exchange_into(lengths, rows)
+    out["into"] = [[bytes(memoryview(got[d][s])) for s in range(D)]
+                   for d in range(D)]
+    cols = ex.plan(lengths).total_cols
+    padded = {}
+    for s in range(D):
+        buf = np.zeros(D * cols, np.uint8)
+        for d in range(D):
+            buf[d * cols:d * cols + int(lengths[s, d])] = np.frombuffer(
+                streams[s][d], np.uint8)
+        padded[s] = PaddedSourceRow(buf, cols)
+    events = []
+    got = ex.exchange_padded(lengths, padded, window_rounds=window,
+                             on_round=lambda r, lo, hi, _rows:
+                             events.append((r, lo, hi)))
+    out["padded"] = [[bytes(memoryview(got[d][s])) for s in range(D)]
+                     for d in range(D)]
+    out["events"] = events
+    x = rng.integers(0, 256, size=(D, D, 512), dtype=np.uint8)
+    out["a2a"] = ex.a2a(x).cpu().numpy()
+    out["stats"] = ex.stats()
+    want = [[streams[s][d] for s in range(D)] for d in range(D)]
+    assert out["bytes"] == out["into"] == out["padded"] == want
+    assert (out["a2a"] == x.transpose(1, 0, 2)).all()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 2])
+def test_colocated_exchange_on_card(cuda_device, window):
+    """The co-located exchange (E ranks in one process) on the card:
+    every path's bytes, the round events, the a2a and the stats equal
+    the CPU run's."""
+    got = _colocated_run(cuda_device, window)
+    ref = _colocated_run("cpu", window)
+    for k in ("bytes", "into", "padded", "events", "stats"):
+        assert got[k] == ref[k], k
+    assert (got["a2a"] == ref["a2a"]).all()
+    assert got["stats"]["device_exchanges"] == 1
+
+
+def _plane_job(device, plane, device_path):
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 700, 200_000).astype(np.int64)
+    vals = rng.integers(-1000, 1000, 200_000).astype(np.int64)
+    conf = TpuShuffleConf({
+        "spark.shuffle.tpu.readPlane": plane,
+        "spark.shuffle.tpu.serializer": "columnar",
+        "spark.shuffle.tpu.bulkWindowMaps": "2",
+        "spark.shuffle.tpu.deviceExchangeEnabled": str(device_path)})
+    with TpuShuffleContext(num_executors=3, conf=conf,
+                           device=device) as ctx:
+        got = dict(ctx.parallelize_columns(keys, vals, num_slices=6)
+                   .reduce_by_key("sum", num_partitions=6).collect())
+        wp = ctx.executors[0].windowed_plane
+        stats = wp.stats() if wp is not None else None
+    want = {}
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        want[k] = want.get(k, 0) + v
+    assert got == want
+    return got, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["bulk", "windowed"])
+def test_device_read_plane_on_card(cuda_device, plane):
+    """A bulk and a windowed context job on the card with the padded
+    device path on: the result equals the CPU run's, the windowed
+    plane's exchange ran on the device, device memory returns to its
+    start after stop(), and the source rows are pinned."""
+    import gc
+
+    from sparkrdma_tpu_torch.shuffle import bulk
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    got, stats = _plane_job(cuda_device, plane, True)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    if stats is not None:
+        assert stats["device_exchanges"] > 0
+    assert got == _plane_job("cpu", plane, True)[0]
+
+    class Mgr:
+        device = torch.device("cuda", torch.cuda.current_device())
+        staging_pool = None
+
+    row = bulk.source_row_alloc(Mgr())(1 << 20)
+    assert torch.from_numpy(row).is_pinned()

@@ -10,7 +10,8 @@ record, and in order where the JAX result is ordered.  Also here: the
 committed segment bytes of a map task, the failure classes, the
 resource ledger and arena after ``stop()``, a columnar subset of
 tests/test_columnar.py, the cases of tests/test_map_output.py, one TCP
-shuffle, and the refusals (no CUDA, the device read planes).
+shuffle, and the refusal without CUDA.  The bulk and windowed read
+planes are in tests/test_torch_device_planes.py.
 """
 
 import contextlib
@@ -1018,23 +1019,3 @@ def test_context_without_device_needs_cuda(pkgs):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         P.manager.TpuShuffleManager(
             P.Conf(), is_driver=True, network=P.transport.LoopbackNetwork())
-
-
-@pytest.mark.parametrize("plane", ["windowed", "bulk", "collective"])
-def test_device_read_planes_raise(pkgs, plane):
-    P = pkgs[1]
-    conf = P.Conf({"spark.shuffle.tpu.readPlane": plane})
-    with pytest.raises(NotImplementedError, match="shuffle/bulk.py"):
-        P.Context(num_executors=2, conf=conf)
-
-
-def test_windowed_reader_raises(pkgs):
-    """A manager whose conf asks for the windowed plane refuses to build
-    a reader instead of falling back to the host plane."""
-    P = pkgs[1]
-    with cluster(P, False, n=1, extra={
-            "spark.shuffle.tpu.readPlane": "windowed"}) as (
-            _n, _c, driver, (ex,)):
-        handle = driver.register_shuffle(0, 1, P.part.HashPartitioner(2))
-        with pytest.raises(NotImplementedError, match="shuffle/bulk.py"):
-            ex.get_reader(handle, 0, 1, {})
