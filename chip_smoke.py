@@ -30,7 +30,10 @@ each result held against the host plane's and an oracle.  With two or
 more cards it also runs TeraSort, WordCount, the hash join, the
 external sort, the byte plane, ring and Ulysses attention and the
 windowed read plane (one executor per card) over NCCL on up to four of
-them; with one it prints that this did not run.
+them; with one it prints that this did not run.  With three or more
+cards the port's dry run (``entry.dryrun_multichip``: every data-plane
+program of the JAX dry run, one process per card) runs over up to
+eight; with fewer, its record-plane half runs alone on card 0.
 float32 matrix products run without TF32 throughout, so the plain
 versions and oracles are full float32.
 
@@ -85,6 +88,17 @@ MULTI_DIM_N = 1 << 16
 MULTI_EXT_N = 1 << 22       # multi_gpu external sort, per rank
 MULTI_EXT_CHUNKS = 4
 MULTI_EXT_BUCKETS = 16
+MULTI_TIMEOUT_S = 600       # multi_gpu: each collective and the whole world
+# the dry run's kernel shapes (entry.dryrun_multichip): scans of about
+# 512 rows per rank under the heads of 50 (WordCount) and 9 (the keyed
+# aggregator) sorted keys; kernel 3 in float32 at d 8 on H = D heads of
+# 16 rows per rank (ring) and on one head of the whole 16 D rows
+# (Ulysses), D up to 8
+DRYRUN_SCAN_N = 512
+DRYRUN_SCAN_GROUPS = (50, 9)
+DRYRUN_ATTN_D = 8
+DRYRUN_ATTN_S = 16
+DRYRUN_RANKS = 8
 U32 = (1 << 32) - 1
 # the byte data plane on one card (D = 1)
 BYTE_ROW = 1 << 30          # exchange_padded: one 1 GiB source row
@@ -516,9 +530,50 @@ def _scan_sql_checks(torch, scan, gen, dev, n, flag):
     return worst
 
 
-def phase_scan(torch, scan, gen, dev):
-    """Kernel 1 against its plain version: all kinds, 1-3 columns."""
+def _scan_dryrun_checks(torch, scan, gen, dev):
+    """Kernel 1 at the dry run's shapes, bit for bit against its plain
+    version: ``ops/segment.py``'s add, min and max scans of one int32
+    or int64 column and its fill of both from run ends, under the heads
+    of sorted keys, and ``cumsum_1d``."""
     worst = 0
+    n = DRYRUN_SCAN_N
+    for groups in DRYRUN_SCAN_GROUPS:
+        gk = torch.sort(torch.randint(0, groups, (n,), generator=gen,
+                                      device=dev)).values
+        heads = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           gk[1:] != gk[:-1]])
+        ends = torch.cat([gk[1:] != gk[:-1],
+                          torch.ones(1, dtype=torch.bool, device=dev)])
+        c32 = torch.randint(-1000, 1000, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        cols = (c32, c32.long() << 20)
+        for kind in ("add", "min", "max"):
+            for c in cols:
+                gf, (g,) = scan.scan_flagged(kind, heads, [c])
+                wf, (w,) = scan.scan_flagged_plain(kind, heads, [c])
+                require(torch.equal(gf, wf), f"{kind} flag differs (n={n})")
+                worst = max(worst, _scan_err(
+                    torch, g, w, f"{kind} scan differs ({c.dtype}, n={n})"))
+        gf, gx = scan.scan_flagged("fill", ends, list(cols))
+        wf, wx = scan.scan_flagged_plain("fill", ends, list(cols))
+        require(torch.equal(gf, wf), f"fill flag differs (n={n})")
+        for g, w in zip(gx, wx):
+            worst = max(worst, _scan_err(torch, g[wf], w[wf],
+                                         f"fill differs (n={n})"))
+        zero = torch.zeros(n, dtype=torch.bool, device=dev)
+        _f, (want,) = scan.scan_flagged_plain("add", zero, [c32])
+        worst = max(worst, _scan_err(torch, scan.cumsum_1d(c32), want,
+                                     f"cumsum_1d differs (n={n})"))
+        phase("scan_check", what="dry run shape", n=n, groups=groups,
+              kinds=["add", "min", "max", "fill", "cumsum_1d"],
+              dtype="int32,int64", bit_exact=True)
+    return worst
+
+
+def phase_scan(torch, scan, gen, dev):
+    """Kernel 1 against its plain version: all kinds, 1-3 columns, and
+    at the dry run's shapes."""
+    worst = _scan_dryrun_checks(torch, scan, gen, dev)
     for n in (KEYED_N, SCAN_RAGGED_N):
         flag = torch.rand(n, generator=gen, device=dev) < 1e-3
         cols = [torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
@@ -831,7 +886,7 @@ def phase_attention_check(torch, attn, gen, dev):
     bfloat16, float16), d_head at each compiled size (64, 128, 256),
     padded ones (32, 96) and past 256 (320 and 576: a full slab and a
     narrower one; 512: two full slabs), causal and not, a ragged shape,
-    rows masked fully and partly."""
+    rows masked fully and partly; and the dry run's float32 d 8 blocks."""
     worst = 0.0
     cases = [(dt, d, causal, n, s_q, s_k, qo, ko)
              for dt in ATTN_DTYPES for d in ATTN_CHECK_D
@@ -849,6 +904,16 @@ def phase_attention_check(torch, attn, gen, dev):
                                           (2, 300, 500, 0, 70),
                                           (2, 300, 500, 0, 400),
                                           (4, 1024, 1536, 1024, 512))]
+    # the dry run's: ring hops of 16-row shards on D = 8 heads (the
+    # diagonal, one in the past, one in the future), Ulysses on one head
+    # of all 128 rows
+    s, D = DRYRUN_ATTN_S, DRYRUN_RANKS
+    cases += [("float32", DRYRUN_ATTN_D, True, n, s_q, s_k, qo, ko)
+              for n, s_q, s_k, qo, ko in ((D, s, s, 0, 0),
+                                          (D, s, s, 3 * s, 3 * s),
+                                          (D, s, s, (D - 1) * s, 0),
+                                          (D, s, s, s, 2 * s),
+                                          (1, D * s, D * s, 0, 0))]
     per = {}
     for dt, d, causal, n, s_q, s_k, qo, ko in cases:
         dtype = getattr(torch, dt)
@@ -2647,26 +2712,18 @@ def multi_gpu_windowed(torch, group, n_per_rank, out_dir,
                 colocated_s=colo_s)
 
 
-def _multi_gpu_rank(rank, world, store, out_dir):
-    """One NCCL rank of :func:`phase_multi_gpu` (``torch.multiprocessing``
-    target), joined through ``parallel/multihost.initialize`` (card
-    ``rank``): its times go to ``out_dir/rank<rank>.json``."""
+def _multi_gpu_rank(group, out_dir):
+    """One NCCL rank of :func:`phase_multi_gpu` (an ``entry.spawn_world``
+    target, card ``group.rank``): its times go to
+    ``out_dir/rank<rank>.json``."""
     import torch
-    import torch.distributed as dist
 
-    from sparkrdma_tpu_torch.parallel import multihost
-
-    multihost.initialize(f"file://{store}", world, rank, timeout_s=600)
-    try:
-        group = multihost.global_group()
-        times = multi_gpu_cases(torch, group, MULTI_SORT_N, MULTI_FACT_N,
-                                MULTI_DIM_N, MULTI_EXT_N)
-        times["windowed_plane"] = multi_gpu_windowed(torch, group, REC1_N,
-                                                     out_dir)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(times, f)
-    finally:
-        dist.destroy_process_group()
+    times = multi_gpu_cases(torch, group, MULTI_SORT_N, MULTI_FACT_N,
+                            MULTI_DIM_N, MULTI_EXT_N)
+    times["windowed_plane"] = multi_gpu_windowed(torch, group, REC1_N,
+                                                 out_dir)
+    with open(os.path.join(out_dir, f"rank{group.rank}.json"), "w") as f:
+        json.dump(times, f)
 
 
 def phase_multi_gpu(torch):
@@ -2680,7 +2737,7 @@ def phase_multi_gpu(torch):
     ranks on one GPU."""
     import tempfile
 
-    import torch.multiprocessing as mp
+    from sparkrdma_tpu_torch.entry import spawn_world
 
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -2688,8 +2745,8 @@ def phase_multi_gpu(torch):
         return
     world = min(cards, 4)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
-        mp.spawn(_multi_gpu_rank, args=(world, os.path.join(tmp, "store"),
-                                        tmp), nprocs=world, join=True)
+        spawn_world(_multi_gpu_rank, world, "cuda", MULTI_TIMEOUT_S,
+                    args=(tmp,))
         times = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -2707,6 +2764,55 @@ def phase_multi_gpu(torch):
           windowed_plane=[t.pop("windowed_plane") for t in times],
           seconds_max_over_ranks={k: max(t[k] for t in times)
                                   for k in times[0]}, correct=True)
+
+
+def phase_dryrun(torch, _build):
+    """The port's dry run (``entry.dryrun_multichip``): with three or
+    more cards, every data-plane program of the JAX dry run over NCCL on
+    min(cards, 8) cards, one process per card, each case held to the
+    JAX dry run's assertions, then the record-plane half on card 0; one
+    line with the seconds of each case (the maximum over the ranks, to
+    the end of its work on the card) and each rank's kernel launches
+    over the cases, which must count kernel 1 (WordCount, the keyed
+    aggregator) and kernel 3 (ring and Ulysses attention) on every rank.
+    With fewer cards the world does not run (the dry run needs three
+    ranks, NCCL one card per rank), and the record-plane half
+    (``entry.dryrun_record_plane``) runs alone on card 0 at the JAX dry
+    run's n = 4: 4 windowed executors and a 3-map bulk session; its
+    launches are printed.  A failing case raises out of the phase."""
+    from sparkrdma_tpu_torch import entry
+
+    cards = torch.cuda.device_count()
+    if cards >= entry.DRYRUN_MIN_RANKS:
+        ranks = min(cards, DRYRUN_RANKS)
+        t0 = time.monotonic()
+        res = entry.dryrun_multichip(ranks)
+        secs = time.monotonic() - t0
+        for r, counts in enumerate(res["launches"]):
+            for name in ("flagged_scan", "block_attention"):
+                require(counts.get(name, 0) > 0,
+                        f"dry run rank {r} launched no {name}: {counts}")
+        rp = res["record_plane"]
+        phase("dryrun", ran=True, cards=cards, ranks=ranks,
+              rows_per_rank=entry.DRYRUN_ROWS, seconds=secs,
+              seconds_max_over_ranks=res["seconds"],
+              launches=res["launches"],
+              record_plane_seconds=rp["seconds"],
+              windowed_stats=rp["windowed_stats"],
+              bulk_window_events=rp["bulk_window_events"], correct=True)
+        return
+    out({"phase": "dryrun", "ran": False, "cards": cards,
+         "ranks_needed": entry.DRYRUN_MIN_RANKS})
+    t0 = time.monotonic()
+    _build.reset_launch_counts()
+    rp = entry.dryrun_record_plane(4, device=torch.device("cuda", 0))
+    launches = _build.launch_counts()
+    phase("dryrun_record_plane", n_ranks=4, windowed_executors=4,
+          bulk_maps=3, seconds=time.monotonic() - t0,
+          seconds_each=rp["seconds"], windowed_stats=rp["windowed_stats"],
+          bulk_window_events=rp["bulk_window_events"],
+          bulk_records=len(rp["bulk_records"]), launches=launches,
+          correct=True)
 
 
 def phase_external_sort(torch, ext_mod, seed, dev):
@@ -2834,6 +2940,8 @@ def main(argv=None) -> int:
             torch, ts, part, wc_mod, seg, _build, gen, dev)
         torch.cuda.empty_cache()
         phase_multi_gpu(torch)
+        phase_dryrun(torch, _build)
+        torch.cuda.empty_cache()
         check_err = phase_attention_check(torch, attn, gen, dev)
         attn_k = phase_attention_time(torch, attn, gen, dev)
         attn_k["max_abs_err"] = max(attn_k["max_abs_err"], check_err)

@@ -7,9 +7,12 @@ against a parent-side recomputation (the JAX package's record
 generators and digests give the same values), the fleet census and
 flight-recorder collection work, and an executor SIGKILLed mid-stage
 leaves its reader a clean FetchFailedError while the survivor keeps
-serving.  Each cluster binds its driver at 29700 (executors at 29800 and
-29840), inside the range no other test uses; the clusters run one after
-another, and the listeners reuse their addresses.
+serving.  Each cluster binds its driver at 29620 (executors at 29720 and
+29760): no JAX test binds these ports or reaches them by the 16-port
+bind hunt above its managers' ports (the tiered store's listeners sit
+at 29640-29660, 29680-29700, 29840-29860 and 29880-29900, the
+``cluster`` fixture's on 24200 + 500 k, + 100 and + 140).  The clusters
+run one after another, and the listeners reuse their addresses.
 """
 
 import pytest
@@ -28,7 +31,7 @@ pytestmark = pytest.mark.cluster
 
 NUM_PARTS = 4
 SHUFFLE = 7
-BASE_PORT = 29700
+BASE_PORT = 29620
 
 
 @pytest.fixture
@@ -72,6 +75,9 @@ def _write_all(cluster, shuffle_id, num_maps, gen):
 
 def test_cross_process_shuffle_bit_exact(cluster):
     assert cluster.executor_devices == ["cpu", "cpu"]
+    assert cluster.driver.node.address[1] == BASE_PORT == 29620
+    assert sorted(smid.port for smid in cluster.driver.executors) == [
+        29720, 29760]
     gen = {"kind": "terasort", "records": 300, "value_len": 32}
     cluster.register(SHUFFLE, num_maps=2, partitioner=("hash", NUM_PARTS))
     _write_all(cluster, SHUFFLE, 2, gen)

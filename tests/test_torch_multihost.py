@@ -4,7 +4,9 @@ worlds.
 
 Each world is spawned once per module (tests/torch_multihost_worker.py,
 which imports neither JAX nor this conftest), over a ``file://`` store,
-with every TCP port of its control plane inside 29900-29999.  The JAX
+with its control plane on fixed TCP ports (``TWO_BASE`` and
+``FOUR_BASE`` of the worker: 29920, 29930-29931, 29950 and
+29960-29963), which no JAX test binds or reaches by its bind hunt.  The JAX
 counterparts (tests/test_multihost.py) skip on the CPU, whose JAX
 backend has no multi-process collectives, so the expectations come from
 the records themselves, as the JAX workers compute them, and from the
@@ -123,6 +125,18 @@ def test_initialize_failure_raises(tmp_path):
                          env=dict(os.environ, PYTHONPATH=str(REPO)),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "raised" in out.stdout, out
+
+
+def test_worlds_bind_their_fixed_ports(two, four):
+    """Every rank bound the port its world's base gives it (driver at
+    the base on rank 0, executor r at base + 10 + r): a move of these
+    constants shows up here."""
+    assert (worker.TWO_BASE, worker.FOUR_BASE) == (29920, 29950)
+    for base, ranks in ((worker.TWO_BASE, two),
+                        (worker.FOUR_BASE, four[0])):
+        for r, res in enumerate(ranks):
+            assert res["ports"] == dict(
+                executor=base + 10 + r, driver=base if r == 0 else None)
 
 
 def test_two_process_collectives(two):

@@ -991,19 +991,27 @@ def test_map_output_case_matches_jax(pkgs, case):
 # -- TCP, refusals ------------------------------------------------------------
 
 
+TCP_DRIVER_PORT = 29600
+TCP_BASE_PORT = 29505
+
+
 def test_tcp_shuffle(pkgs):
-    """A shuffle over real sockets: two executors and the driver on
-    ports outside the suite's fixed ranges; the result equals the
-    loopback one's and the oracle."""
+    """A shuffle over real sockets: the driver on 29600 and the two
+    executors on 29605 and 29615 (``base_port + 100 + 10 i``), ports that
+    no JAX test binds or reaches by the 16-port bind hunt above its
+    managers' ports; the result equals the loopback one's and the
+    oracle."""
     P = pkgs[1]
     data = [(i % 41, i) for i in range(4000)]
     want = defaultdict(int)
     for k, v in data:
         want[k] += v
-    conf = P.Conf({"spark.shuffle.tpu.driverPort": 29640})
-    with P.Context(num_executors=2, conf=conf, base_port=29640,
+    conf = P.Conf({"spark.shuffle.tpu.driverPort": TCP_DRIVER_PORT})
+    with P.Context(num_executors=2, conf=conf, base_port=TCP_BASE_PORT,
                    network=P.transport.TcpNetwork(),
                    stage_to_device=True) as ctx:
+        assert ctx.driver.node.address[1] == TCP_DRIVER_PORT == 29600
+        assert [e.node.address[1] for e in ctx.executors] == [29605, 29615]
         got = sorted(ctx.parallelize(data, num_slices=4)
                      .reduce_by_key(lambda a, b: a + b, num_partitions=4)
                      .collect())

@@ -20,8 +20,12 @@ whose exchange is rank-local over the world.  Results go to
   SIGKILLs itself and every survivor's pending reader must fail
   promptly with a stage-retriable error.
 
-The TCP ports are fixed inside 29900-29999 (driver at BASE, executor r
-at BASE + 10 + r), so canonical host order equals rank order.
+The TCP ports are fixed (driver at BASE, executor r at BASE + 10 + r),
+so canonical host order equals rank order: ``TWO_BASE`` 29920 puts the
+two-process plane at 29920, 29930 and 29931, clear of the 16-port bind
+hunt above the JAX tiered store's executor at 29900; ``FOUR_BASE``
+29950 puts the four-process plane at 29950 and 29960-29963.  Each rank
+reports the ports it bound (``res["ports"]``).
 """
 
 import os
@@ -34,7 +38,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-TWO_BASE = 29910
+TWO_BASE = 29920
 FOUR_BASE = 29950
 NUM_PARTS = 8
 # collectives with a dead peer fail after this long, well inside the
@@ -184,6 +188,9 @@ def phase_two(rank, world, store, out_dir):
         res["remote_guarded"] = True
 
     ex_mgr = _manager(conf, driver_port, rank, world)
+    res["ports"] = dict(
+        executor=ex_mgr.node.address[1],
+        driver=None if driver is None else driver.node.address[1])
 
     # the bulk-synchronous shuffle: the reader's default exchange is the
     # initialised world on the manager's device
@@ -314,6 +321,9 @@ def phase_four(rank, world, store, out_dir):
                          num_processes=world, process_id=rank,
                          device="cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
     ex_mgr = _manager(conf, driver_port, rank, world)
+    res["ports"] = dict(
+        executor=ex_mgr.node.address[1],
+        driver=None if driver is None else driver.node.address[1])
     ex_mgr.windowed_plane = WindowedReadPlane(
         ex_mgr, exchange=TileExchange(multihost.global_group("cpu"),
                                       tile_bytes=1 << 12))
