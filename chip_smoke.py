@@ -132,6 +132,25 @@ REC_REPS = 2                # timed jobs of each (config, staging) pair
 # path (deviceExchangeEnabled) on and off; the windowed plane plans
 # windows of 2 maps (bulkWindowMaps)
 DRP_WINDOW_MAPS = 2
+# the host plane's features (phase_host_features).  The conf matrix of
+# tests/test_conf_matrix.py (serializer x compress x spill x directIO):
+# columnar cells at config 1's widths (groupByKey and sortByKey of 64 B
+# payloads, reduceByKey of int64 values, over 512 keys, 4 executors, 8
+# slices, 8 partitions) but HF_COL_N records, a quarter of its 2^24: at
+# 2^24 the 16 cells took 497 s on an H100 80GB HBM3 at 700 W, mostly
+# sortByKey's 2^24 Python tuples, and the script must stay inside half
+# its time limit; pickle cells at config 2's 300 000 records over 1024 keys; a spilling
+# map task spills about four times.  Then push, skew and the tiered
+# store on one reduceByKey of config 1's 2^24 records (int64 values)
+# over Zipf(1.1) keys: 8 map tasks of HF_BATCHES batches each (a frame
+# per batch and partition, where a split may cut), HF_PARTS partitions
+# so that the Zipf head stands out of the median, hot partitions split
+# above HF_SPLIT, and a hot tier of a quarter of the map outputs' bytes
+HF_COL_N = 1 << 22
+HF_COL_SPILL = 1 << 17      # records a columnar map task buffers
+HF_PICKLE_SPILL = 1 << 14   # records a pickle map task buffers
+HF_MAPS, HF_BATCHES, HF_PARTS = 8, 8, 64
+HF_SPLIT = "1m"             # skewSplitThreshold
 # float32 "add" sums in another order in the kernel (sequential per
 # thread, then a tree) than in the log-step plain version; segments
 # average 1000 values of magnitude <= 1, so the two sums differ by far
@@ -1844,6 +1863,361 @@ def phase_device_read_plane(torch, dev):
     del records, keys1, vals1
 
 
+HF_COUNTERS = (
+    "staging_h2d_bytes_total", "staging_commit_fallbacks_total",
+    "shuffle_spills_total", "shuffle_spill_bytes_total",
+    "push_sub_blocks_total", "push_merged_blocks_total",
+    "push_merged_bytes_total", "skew_partitions_split_total",
+    "skew_sub_blocks_total", "tier_promotes_total", "tier_demotes_total",
+    "tier_commit_bytes_total", "tier_cold_read_bytes_total")
+
+
+def _feature_counters():
+    """The features' counters, summed over labels (the registry is on
+    for the phase), and the merged spans served (``push`` reads)."""
+    from sparkrdma_tpu_torch.metrics import get_registry
+
+    got = dict.fromkeys(HF_COUNTERS + ("push_reads",), 0)
+    for c in get_registry().snapshot()["counters"]:
+        if c["name"] in got:
+            got[c["name"]] += c["value"]
+        elif (c["name"] == "shuffle_fetch_rpcs_total"
+              and c["labels"].get("mode") == "push"):
+            got["push_reads"] += c["value"]
+    return got
+
+
+def _hf_run(torch, dev, make_ctx, stage, body, label=None):
+    """``body(ctx)`` on a fresh context with map outputs staged on the
+    card or kept on the host: its result, the seconds it took (host
+    clock), the counters' deltas, and the device memory at peak and
+    after ``stop()``, which must equal the memory before.  With
+    ``label`` the body runs a second time under the profiler."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _feature_counters()
+    ctx = make_ctx(stage)
+    try:
+        t0 = time.monotonic()
+        res = body(ctx)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        c1 = _feature_counters()
+        if label:
+            profile(torch, label, lambda: body(ctx), warm=False)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ctx.stop()
+    del ctx
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    d = {k: c1[k] - c0[k] for k in c0}
+    require(after == base,
+            f"device memory {after} B after stop(), {base} B before")
+    require(d["staging_commit_fallbacks_total"] == 0,
+            f"commits fell back to host memory: {d}")
+    require(stage or d["staging_h2d_bytes_total"] == 0,
+            f"a host run staged to the device: {d}")
+    return res, dict(seconds=secs, counters=d, max_memory_allocated=peak,
+                     memory_allocated_before=base,
+                     memory_allocated_after_stop=after)
+
+
+def _hf_columnar_ops(np, ctx, keys, payload, ivals):
+    """groupByKey and sortByKey of (key, 64 B payload), reduceByKey of
+    (key, int64): each group's digest, the sorted records' keys and
+    digests, and the sums."""
+    w = REC1_PAYLOAD // 8
+    res = {"group": {}}
+    t0 = time.monotonic()
+    for k, grp in ctx.parallelize_columns(keys, payload,
+                                          num_slices=REC1_SLICES) \
+            .group_by_key(num_partitions=REC1_PARTS).collect():
+        g = np.ascontiguousarray(grp).view(np.uint64).reshape(-1, w)
+        res["group"][int(k)] = (g.shape[0],
+                                g.sum(axis=0, dtype=np.uint64).tobytes(),
+                                np.bitwise_xor.reduce(g, axis=0).tobytes())
+    res["seconds"] = {"group": time.monotonic() - t0}
+    t0 = time.monotonic()
+    out = ctx.parallelize_columns(keys, payload, num_slices=REC1_SLICES) \
+        .sort_by_key(num_partitions=REC1_PARTS).collect()
+    res["seconds"]["sort"] = time.monotonic() - t0
+    sk = np.fromiter((k for k, _v in out), np.int64, count=len(out))
+    sw = np.frombuffer(b"".join(v for _k, v in out), np.uint64) \
+        .reshape(-1, w)
+    del out
+    res["sort"] = (sk.tobytes(), _key_digests(np, sk, sw))
+    t0 = time.monotonic()
+    res["reduce"] = {int(k): int(v) for k, v in ctx.parallelize_columns(
+        keys, ivals, num_slices=REC1_SLICES).reduce_by_key(
+        "sum", num_partitions=REC1_PARTS).collect()}
+    res["seconds"]["reduce"] = time.monotonic() - t0
+    return res
+
+
+def _hf_pickle_ops(ctx, records):
+    """groupByKey, sortByKey and reduceByKey of (int, int) records:
+    each key's sorted values, the key sequence with each key's sorted
+    values, and the sums."""
+    def ds():
+        return ctx.parallelize(records, num_slices=REC2_SLICES)
+
+    t0 = time.monotonic()
+    res = {"group": {k: sorted(v) for k, v in ds().group_by_key(
+        num_partitions=REC2_PARTS).collect()}}
+    res["seconds"] = {"group": time.monotonic() - t0}
+    t0 = time.monotonic()
+    out = ds().sort_by_key(num_partitions=REC2_PARTS).collect()
+    res["seconds"]["sort"] = time.monotonic() - t0
+    by = {}
+    for k, v in out:
+        by.setdefault(k, []).append(v)
+    res["sort"] = ([k for k, _v in out],
+                   {k: sorted(v) for k, v in by.items()})
+    t0 = time.monotonic()
+    res["reduce"] = dict(ds().reduce_by_key(
+        lambda a, b: a + b, num_partitions=REC2_PARTS).collect())
+    res["seconds"]["reduce"] = time.monotonic() - t0
+    return res
+
+
+def _hf_pst_job(np, keys, vals):
+    """reduceByKey("sum") of (key, int64) columns through the context's
+    driver and executors, each of ``HF_MAPS`` map tasks writing its
+    slice as ``HF_BATCHES`` batches (the frames a hot partition splits
+    at), no map-side combine (the skew must reach the reducers): the
+    sums by key."""
+    from sparkrdma_tpu_torch.shuffle.manager import ColumnarAggregator
+    from sparkrdma_tpu_torch.shuffle.partitioner import HashPartitioner
+    from sparkrdma_tpu_torch.utils.columns import ColumnBatch
+
+    ids = iter(range(1 << 20))
+
+    def body(ctx):
+        sid = 1000 + next(ids)
+        E = len(ctx.executors)
+        handle = ctx.driver.register_shuffle(
+            sid, HF_MAPS, HashPartitioner(HF_PARTS),
+            aggregator=ColumnarAggregator.reduce("sum"))
+        cuts = np.linspace(0, len(keys), HF_MAPS * HF_BATCHES + 1,
+                           dtype=np.int64)
+        mbh = {}
+
+        def map_task(m):
+            ex = ctx.executors[m % E]
+            w = ex.get_writer(handle, m)
+            for b in range(m * HF_BATCHES, (m + 1) * HF_BATCHES):
+                lo, hi = cuts[b], cuts[b + 1]
+                w.write_columns(ColumnBatch(keys[lo:hi], vals[lo:hi]))
+            w.stop(True)
+            return ex.local_smid, m
+
+        for smid, m in ctx._run_tasks([(m % E, (lambda m=m: map_task(m)))
+                                       for m in range(HF_MAPS)]):
+            mbh.setdefault(smid, []).append(m)
+
+        def reduce_task(p):
+            return list(ctx.executors[p % E].get_reader(
+                handle, p, p + 1, mbh).read())
+
+        parts = ctx._run_tasks([(p % E, (lambda p=p: reduce_task(p)))
+                                for p in range(HF_PARTS)])
+        ctx.driver.unregister_shuffle(sid)
+        for ex in ctx.executors:
+            ex.unregister_shuffle(sid)
+        return {int(k): int(v) for part in parts for k, v in part}
+
+    return body
+
+
+def _hf_conf_cell(torch, dev, cell, body, want, n, spill_dir, o_direct):
+    """One conf-matrix cell ``(serializer, compress, spill, directIO)``:
+    ``body`` on a context with map outputs staged on the card, then on
+    one with them on the host, each result against ``want``; no spill or
+    shuffle file may be left behind, and a spilling cell must spill the
+    same in both modes.  Prints the cell's ``host_features`` line."""
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+
+    serializer, compress, spill, direct_io = cell
+    columnar = serializer == "columnar"
+    conf = {"spark.shuffle.tpu.serializer": serializer,
+            "spark.shuffle.tpu.compress": compress,
+            "spark.shuffle.tpu.directIO": direct_io,
+            "spark.shuffle.tpu.spillDir": spill_dir}
+    if spill:
+        conf["spark.shuffle.tpu.shuffleSpillRecordThreshold"] = (
+            HF_COL_SPILL if columnar else HF_PICKLE_SPILL)
+
+    def make_ctx(stage):
+        return TpuShuffleContext(
+            num_executors=REC1_EXEC if columnar else REC2_EXEC,
+            conf=TpuShuffleConf(dict(conf)),
+            tasks_per_executor=REC1_TASKS if columnar else 4,
+            device=dev, stage_to_device=stage)
+
+    runs = {}
+    for stage in (True, False):
+        res, runs[stage] = _hf_run(torch, dev, make_ctx, stage, body)
+        runs[stage]["op_seconds"] = res["seconds"]
+        for op in ("group", "sort", "reduce"):
+            require(res[op] == want[op], f"host_features {cell} staged="
+                    f"{stage}: {op} differs from the oracle")
+        del res
+        left = [f for f in os.listdir(spill_dir) if f.startswith("sparkrdma")]
+        require(not left,
+                f"host_features {cell}: {len(left)} files left behind")
+        spills = runs[stage]["counters"]["shuffle_spills_total"]
+        require((spills > 0) == spill, f"host_features {cell}: {spills} "
+                "spills")
+    require(runs[True]["counters"]["shuffle_spills_total"]
+            == runs[False]["counters"]["shuffle_spills_total"],
+            f"host_features {cell}: spills differ between staging modes")
+    require(spill or runs[True]["counters"]["staging_h2d_bytes_total"] > 0,
+            f"host_features {cell}: nothing staged")
+    phase("host_features", part="conf_matrix", serializer=serializer,
+          compress=compress, spill=spill, direct_io=direct_io,
+          o_direct=o_direct and direct_io == "auto", n_records=n,
+          seconds=runs[True]["seconds"], seconds_host=runs[False]["seconds"],
+          staged=runs[True], host=runs[False], correct=True)
+
+
+def phase_host_features(torch, _build, gen, dev):
+    """The record-level shuffle's storage, fetch and admission features
+    through ``TpuShuffleContext``, with map outputs staged on the card
+    and kept on the host.  First the conf matrix (serializer x compress
+    x spill x directIO; groupByKey, sortByKey and reduceByKey in each
+    cell), each result held against the other staging mode's and a
+    numpy or Python oracle, with no spill or shuffle file left behind.
+    Then push merge, skew split and the tiered store together on one
+    reduceByKey of 2^24 Zipf-keyed records, staged and on the host,
+    each against the oracle; then ``ctx.device_aggregate`` (kernel 1)
+    over the same keys against the job's sums.  Returns kernel 1's
+    launches."""
+    import gc
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+    from sparkrdma_tpu_torch.memory.direct_io import direct_supported
+    from sparkrdma_tpu_torch.metrics import get_registry
+
+    registry = get_registry()
+    was_on, registry.enabled = registry.enabled, True
+    spill_dir = tempfile.mkdtemp(prefix="host_features_")
+    o_direct = direct_supported(spill_dir)
+    try:
+        rng = np.random.default_rng(3)
+        keys1 = rng.integers(0, REC1_KEYS, HF_COL_N).astype(np.int64)
+        payload = np.frombuffer(rng.bytes(HF_COL_N * REC1_PAYLOAD),
+                                dtype=f"S{REC1_PAYLOAD}")
+        ivals = rng.integers(0, 1000, HF_COL_N).astype(np.int64)
+        words = payload.view(np.uint64).reshape(HF_COL_N,
+                                                REC1_PAYLOAD // 8)
+        digests = _key_digests(np, keys1, words)
+        want1 = {"group": digests,
+                 "sort": (np.sort(keys1, kind="stable").tobytes(), digests),
+                 "reduce": {k: int(s) for k, s in enumerate(np.bincount(
+                     keys1, weights=ivals, minlength=REC1_KEYS)
+                     .astype(np.int64))}}
+        del words
+        keys2 = rng.integers(0, REC2_KEYS, REC2_N).tolist()
+        records = list(zip(keys2, rng.integers(0, 1000, REC2_N).tolist()))
+        want2 = {"group": {}, "reduce": {}}
+        for k, v in records:
+            want2["group"].setdefault(k, []).append(v)
+            want2["reduce"][k] = want2["reduce"].get(k, 0) + v
+        want2["group"] = {k: sorted(v) for k, v in want2["group"].items()}
+        want2["sort"] = (sorted(keys2), want2["group"])
+        for cell in itertools.product(("columnar", "pickle"), (False, True),
+                                      (False, True), ("auto", "off")):
+            if cell[0] == "columnar":
+                def body(ctx):
+                    return _hf_columnar_ops(np, ctx, keys1, payload, ivals)
+                _hf_conf_cell(torch, dev, cell, body, want1, HF_COL_N,
+                              spill_dir, o_direct)
+            else:
+                def body(ctx):
+                    return _hf_pickle_ops(ctx, records)
+                _hf_conf_cell(torch, dev, cell, body, want2, REC2_N,
+                              spill_dir, o_direct)
+            gc.collect()
+        del payload, keys1, ivals, records, want1, want2
+        gc.collect()
+
+        # push + skew + tier on one Zipf job
+        zk = zipf_keys(torch, REC1_N, gen, dev).cpu().numpy() \
+            .astype(np.int64)
+        zv = rng.integers(0, 100, REC1_N).astype(np.int64)
+        sums = np.bincount(zk, weights=zv)
+        counts = np.bincount(zk)
+        want = {int(k): int(sums[k]) for k in np.flatnonzero(counts)}
+        out_bytes = REC1_N * 16
+        conf = {"spark.shuffle.tpu.serializer": "columnar",
+                "spark.shuffle.tpu.pushEnabled": True,
+                "spark.shuffle.tpu.skewEnabled": True,
+                "spark.shuffle.tpu.skewSplitThreshold": HF_SPLIT,
+                "spark.shuffle.tpu.tierHotBytes": out_bytes // 4,
+                "spark.shuffle.tpu.spillDir": spill_dir}
+        body = _hf_pst_job(np, zk, zv)
+
+        def make_ctx(stage):
+            return TpuShuffleContext(
+                num_executors=REC1_EXEC, conf=TpuShuffleConf(dict(conf)),
+                tasks_per_executor=REC1_TASKS, device=dev,
+                stage_to_device=stage)
+
+        runs = {}
+        for stage in (True, False):
+            res, runs[stage] = _hf_run(
+                torch, dev, make_ctx, stage, body,
+                label="host_features_push_skew_tier" if stage else None)
+            require(res == want, f"host_features push+skew+tier staged="
+                    f"{stage}: reduceByKey differs from the oracle")
+            c = runs[stage]["counters"]
+            require(c["push_sub_blocks_total"] > 0 and c["push_reads"] > 0,
+                    f"push merge did not engage: {c}")
+            require(c["skew_partitions_split_total"] > 0,
+                    f"no hot partition split: {c}")
+            require(c["tier_commit_bytes_total"] > 0,
+                    f"no merged span entered the tier: {c}")
+            require(not stage or c["staging_h2d_bytes_total"] > 0,
+                    f"nothing staged: {c}")
+        with TpuShuffleContext(num_executors=1, device=dev) as ctx:
+            _build.reset_launch_counts()
+            t0 = time.monotonic()
+            agg = ctx.device_aggregate(zk, zv)
+            torch.cuda.synchronize()
+            agg_s = time.monotonic() - t0
+            launches = _build.launch_counts()["flagged_scan"]
+        require(launches > 0, "ctx.device_aggregate launched no scan")
+        require({k: st[0] for k, st in agg.items()} == res
+                and all(agg[k][1] == int(counts[k]) for k in res),
+                "ctx.device_aggregate differs from the job's reduceByKey")
+        phase("host_features", part="push_skew_tier", n_records=REC1_N,
+              record_bytes=16, keys="Zipf(1.1) over 2^20", distinct=len(res),
+              executors=REC1_EXEC, maps=HF_MAPS, batches_per_map=HF_BATCHES,
+              partitions=HF_PARTS, skew_split_threshold=HF_SPLIT,
+              tier_hot_bytes=out_bytes // 4, o_direct=o_direct,
+              seconds=runs[True]["seconds"],
+              seconds_host=runs[False]["seconds"], staged=runs[True],
+              host=runs[False], device_aggregate_s=agg_s,
+              flagged_scan_launches=launches, correct=True)
+    finally:
+        registry.enabled = was_on
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return launches
+
+
 def phase_device_workloads(torch, _build, gen, dev):
     """``ctx.device_count`` and ``ctx.device_aggregate`` on KEYED_N Zipf
     keys through the shuffle context: each equals the direct
@@ -2639,10 +3013,6 @@ def multi_gpu_windowed(torch, group, n_per_rank, out_dir,
     ex = TpuShuffleManager(TpuShuffleConf(dict(conf)), is_driver=False,
                            network=TcpNetwork(), port=port + 10 + rank,
                            executor_id=str(rank), device=dev)
-    deadline = time.monotonic() + 120
-    while len(ex._peers) < world and time.monotonic() < deadline:
-        time.sleep(0.02)
-    require(len(ex._peers) == world, f"rank {rank}: announce incomplete")
     from sparkrdma_tpu_torch.utils.columns import ColumnBatch
 
     handle = ShuffleHandle(1, maps, part, aggregator=agg)
@@ -2961,6 +3331,8 @@ def main(argv=None) -> int:
         phase_record_plane(torch, dev)
         torch.cuda.empty_cache()
         phase_device_read_plane(torch, dev)
+        torch.cuda.empty_cache()
+        scan_k["launches"] += phase_host_features(torch, _build, gen, dev)
         torch.cuda.empty_cache()
         scan_k["launches"] += phase_device_workloads(torch, _build, gen,
                                                      dev)

@@ -114,11 +114,6 @@ class TpuShuffleContext:
             session = self._session()
             for ex in self.executors:
                 ex.windowed_plane = WindowedReadPlane(ex, session=session)
-            # the first plan window pins the host set: every executor
-            # must be known to the driver by then
-            self.driver.await_executors(
-                [ex.local_smid for ex in self.executors],
-                self.conf.bulk_barrier_timeout_ms / 1000.0)
             if self.conf.lazy_staging:
                 # the ODP analog on the production plane: host-lazy
                 # commits, with ensure_staged/prefetch_shuffle faulting

@@ -462,10 +462,6 @@ def dryrun_record_plane(n_ranks: int, device: DeviceLike = None) -> dict:
         for i in range(min(3, n_ranks))
     ]
     try:
-        # the first plan window pins the host set (see
-        # TpuShuffleManager.await_executors)
-        bdriver.await_executors([e.local_smid for e in bexec],
-                                bconf.bulk_barrier_timeout_ms / 1000.0)
         bhandle = bdriver.register_shuffle(80, len(bexec), HashPartitioner(6))
         brecords = [[(f"b{m}-{j}", j) for j in range(30)]
                     for m in range(len(bexec))]

@@ -242,15 +242,18 @@ class MappedFile:
 
     def free(self) -> None:
         """Dispose: drop the mapping and delete the file
-        (RdmaMappedFile.java:189-199)."""
+        (RdmaMappedFile.java:189-199).
+
+        The mapping is NOT closed here.  ``np.memmap`` takes no buffer
+        export of its ``mmap``, so ``mmap.close()`` succeeds under live
+        views and unmaps the pages they point at: a tier warm or a
+        serve still copying from a view (``TieredBlockStore._load_row``
+        on a drain thread) then reads unmapped memory and the process
+        dies of SIGSEGV.  Dropping the reference leaves the unmap to
+        the last view's collection (every slice's base chain holds the
+        memmap); the unlinked file's pages live until then."""
         if self._freed:
             return
         self._freed = True
-        mm = getattr(self.array, "_mmap", None)
         self.array = None
-        if mm is not None:
-            try:
-                mm.close()
-            except (BufferError, OSError):
-                pass  # outstanding views keep the mapping alive until GC
         self._unlink()

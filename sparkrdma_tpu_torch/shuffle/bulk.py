@@ -901,6 +901,15 @@ class BulkExchangeReader:
         maxBytesInFlight spirit applied to plans
         (RdmaShuffleFetcherIterator.scala:241-251)."""
         mgr = self.manager
+        # the driver pins the plan's host set at the first plan: ask
+        # only once it knows every row of this exchange
+        rows = (self.session.n_hosts if self.session is not None
+                else self.exchange.n_devices)
+        try:
+            mgr.await_peers(rows, mgr.conf.bulk_barrier_timeout_ms / 1000.0)
+        except TimeoutError as e:
+            raise MetadataFetchFailedError(
+                mgr.local_smid.host, shuffle_id, str(e)) from e
         event = threading.Event()
         box = {}
 

@@ -2244,28 +2244,30 @@ class TpuShuffleManager(StateMachine):
         with self._executors_lock:
             return list(self._executors)
 
-    def await_executors(self, smids, timeout_s: float) -> None:
-        """Driver: block until every executor of ``smids`` has said
-        hello.  A windowed shuffle pins one host set at its first plan
-        window (:meth:`_pin_window_hosts`) from the hellos, publishes
-        and plan requests landed so far: an executor none of whose
-        messages had landed by then is refused its plans, and the
-        other executors wait for its row at the exchange until the
-        barrier times out.  A caller that starts every executor itself
-        waits here before its first windowed shuffle."""
+    def await_peers(self, n: int, timeout_s: float) -> None:
+        """Executor: block until the driver has announced ``n``
+        executors (this one included).  A bulk or windowed shuffle's
+        driver pins ONE host set at its first plan (window), from the
+        hellos, publishes and plan requests landed by then: an executor
+        none of whose messages had landed is refused its plans, and the
+        others wait for its row at the exchange until the barrier times
+        out.  The driver announces its whole membership on every hello,
+        so once ``n`` executors are announced here, every plan request
+        sent afterwards reaches a driver that already knows all ``n``
+        of the exchange's rows (``BulkExchangeReader`` waits here before
+        each plan request)."""
         import time as _time
 
-        want = set(smids)
         deadline = _time.monotonic() + timeout_s
         while True:
-            missing = want.difference(self.executors)
-            if not missing:
+            with self._executors_lock:
+                have = len(self._peers)
+            if have >= n:
                 return
             if _time.monotonic() > deadline:
-                ids = sorted(m.block_manager_id.executor_id for m in missing)
                 raise TimeoutError(
-                    f"executors {ids} did not say hello within "
-                    f"{timeout_s:.0f}s")
+                    f"{have} of the exchange's {n} executors announced "
+                    f"within {timeout_s:.0f}s")
             _time.sleep(0.001)
 
     def quiesce(self) -> None:

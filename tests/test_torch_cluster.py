@@ -12,8 +12,13 @@ serving.  Each cluster binds its driver at 29620 (executors at 29720 and
 bind hunt above its managers' ports (the tiered store's listeners sit
 at 29640-29660, 29680-29700, 29840-29860 and 29880-29900, the
 ``cluster`` fixture's on 24200 + 500 k, + 100 and + 140).  The clusters
-run one after another, and the listeners reuse their addresses.
+run one after another, also across test workers (they take turns under
+a lock file), and the listeners reuse their addresses.
 """
+
+import fcntl
+import os
+import tempfile
 
 import pytest
 
@@ -36,19 +41,27 @@ BASE_PORT = 29620
 
 @pytest.fixture
 def cluster(tmp_path):
-    c = ProcessCluster(
-        2, BASE_PORT,
-        conf={
-            "spark.shuffle.tpu.partitionLocationFetchTimeout": "15s",
-            "spark.shuffle.tpu.connectTimeout": "10s",
-            "spark.shuffle.tpu.fetchRetryWaitMs": "100ms",
-        },
-        workdir=str(tmp_path / "cluster"),
-        device="cpu",
-    )
-    yield c
-    c.stop()
-    c.collect()
+    # every test here binds the same ports: two test workers running two
+    # of them at once would move one cluster's listeners up a port
+    path = os.path.join(tempfile.gettempdir(),
+                        "sparkrdma_tpu_torch_cluster_ports.lock")
+    with open(path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        c = ProcessCluster(
+            2, BASE_PORT,
+            conf={
+                "spark.shuffle.tpu.partitionLocationFetchTimeout": "15s",
+                "spark.shuffle.tpu.connectTimeout": "10s",
+                "spark.shuffle.tpu.fetchRetryWaitMs": "100ms",
+            },
+            workdir=str(tmp_path / "cluster"),
+            device="cpu",
+        )
+        try:
+            yield c
+        finally:
+            c.stop()
+            c.collect()
 
 
 def _expected_partitions(gen, num_maps, num_parts):

@@ -280,9 +280,9 @@ def _await_hellos(driver, executors):
     """Wait until ``driver`` knows every executor: the first plan window
     pins the host set, and an executor whose hello, publishes and plan
     request all land after that is refused its plans while the others
-    wait for it at the exchange.  The port's context and dry run wait so
-    (``TpuShuffleManager.await_executors``); the JAX reference here is
-    held to the same start."""
+    wait for it at the exchange.  The port's plan requests wait so
+    (``TpuShuffleManager.await_peers``); the JAX reference here is held
+    to the same start."""
     want = {e.local_smid for e in executors}
     deadline = time.monotonic() + 60
     while not want.issubset(driver.executors):
@@ -377,12 +377,12 @@ def test_record_plane_matches_the_jax_dryrun(port, jax_record_plane, D):
 def test_windowed_plane_waits_for_a_late_executor(monkeypatch,
                                                   jax_record_plane):
     """Every message executor 3 sends the driver (its hello, publishes
-    and plan requests) lands 0.5 s late.  Unless the context waits for
-    its hello, the first plan window pins executors 0-2 only, executor
-    3 is refused its plan, and the others wait for its row at the
-    exchange until the barrier times out (the JAX context does so).
-    The port's context waits, and its result equals the JAX dry run's
-    on time."""
+    and plan requests) lands 0.5 s late.  Unless the first plan request
+    waits for its hello, the first plan window pins executors 0-2 only,
+    executor 3 is refused its plan, and the others wait for its row at
+    the exchange until the barrier times out (the JAX context does
+    so).  The port's plan requests wait until the driver has announced
+    every executor, and its result equals the JAX dry run's on time."""
     send = PManager._send_driver_msg
 
     def late(self, msg, on_failure=None):
@@ -407,10 +407,10 @@ def test_windowed_plane_waits_for_a_late_executor(monkeypatch,
     vals = np.arange(2048, dtype=np.int64)
     with PContext(num_executors=4, conf=conf, base_port=48000,
                   device="cpu") as ctx:
-        assert {e.local_smid for e in ctx.executors} <= set(
-            ctx.driver.executors)
         got = dict(ctx.parallelize_columns(keys, vals, num_slices=8)
                    .reduce_by_key("sum", num_partitions=8).collect())
+        assert {e.local_smid for e in ctx.executors} <= set(
+            ctx.driver.executors)
         stats = ctx.executors[0].windowed_plane.stats()
     assert got == jax_record_plane["windowed"]
     for key in WSTATS_EXACT:

@@ -746,3 +746,136 @@ def test_device_read_plane_on_card(cuda_device, plane):
 
     row = bulk.source_row_alloc(Mgr())(1 << 20)
     assert torch.from_numpy(row).is_pinned()
+
+
+def _conf_cell(device, stage, tmp):
+    """One conf-matrix cell (columnar, compress, spill, directIO auto):
+    groupByKey, reduceByKey and sortByKey, canonical."""
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+
+    rng = np.random.default_rng(42)
+    keys = rng.integers(0, 40, 6000).astype(np.int64)
+    vals = rng.integers(0, 1000, 6000).astype(np.int64)
+    conf = TpuShuffleConf({
+        "spark.shuffle.tpu.serializer": "columnar",
+        "spark.shuffle.tpu.compress": True,
+        "spark.shuffle.tpu.directIO": "auto",
+        "spark.shuffle.tpu.spillDir": str(tmp),
+        "spark.shuffle.tpu.shuffleSpillRecordThreshold": 500,
+    })
+    with TpuShuffleContext(num_executors=2, conf=conf, device=device,
+                           stage_to_device=stage) as ctx:
+        def ds():
+            return ctx.parallelize_columns(keys, vals, num_slices=4)
+
+        group = sorted((int(k), sorted(v.tolist())) for k, v in
+                       ds().group_by_key(num_partitions=3).collect())
+        red = sorted((int(k), int(v)) for k, v in
+                     ds().reduce_by_key("sum", num_partitions=3).collect())
+        srt = ds().sort_by_key(num_partitions=3).collect()
+    assert [int(k) for k, _v in srt] == sorted(keys.tolist())
+    assert not [p for p in tmp.iterdir() if p.name.startswith("sparkrdma")]
+    return group, red, sorted((int(k), int(v)) for k, v in srt)
+
+
+@pytest.mark.gpu
+def test_conf_matrix_cell_on_card(cuda_device, tmp_path):
+    """A spilling, compressed columnar cell with map outputs staged on
+    the card equals the host plane's run, and device memory returns to
+    its start after stop()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    got = _conf_cell(cuda_device, True, tmp_path / "card")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    assert got == _conf_cell("cpu", False, tmp_path / "cpu")
+
+
+def _push_skew_tier(device, stage, tmp):
+    """reduceByKey("sum") of Zipf-keyed columns with push merge, skew
+    split and a small hot tier, 8 maps of 8 batches each into 64
+    partitions: the sums and the features' counter deltas."""
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+    from sparkrdma_tpu_torch.metrics import get_registry
+    from sparkrdma_tpu_torch.shuffle.manager import ColumnarAggregator
+    from sparkrdma_tpu_torch.shuffle.partitioner import HashPartitioner
+    from sparkrdma_tpu_torch.utils.columns import ColumnBatch
+
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    keys = np.minimum(rng.zipf(1.3, n), 1 << 20).astype(np.int64)
+    vals = rng.integers(0, 100, n).astype(np.int64)
+    names = ("push_sub_blocks_total", "skew_partitions_split_total",
+             "tier_commit_bytes_total", "staging_h2d_bytes_total")
+
+    def snap():
+        got = dict.fromkeys(names, 0)
+        for c in get_registry().snapshot()["counters"]:
+            if c["name"] in got:
+                got[c["name"]] += c["value"]
+        return got
+
+    conf = TpuShuffleConf({
+        "spark.shuffle.tpu.serializer": "columnar",
+        "spark.shuffle.tpu.metrics": True,
+        "spark.shuffle.tpu.pushEnabled": True,
+        "spark.shuffle.tpu.skewEnabled": True,
+        "spark.shuffle.tpu.skewSplitThreshold": "4k",
+        "spark.shuffle.tpu.tierHotBytes": n * 4,
+        "spark.shuffle.tpu.spillDir": str(tmp),
+    })
+    with TpuShuffleContext(num_executors=4, conf=conf, device=device,
+                           stage_to_device=stage) as ctx:
+        c0 = snap()
+        handle = ctx.driver.register_shuffle(
+            0, 8, HashPartitioner(64),
+            aggregator=ColumnarAggregator.reduce("sum"))
+        cuts = np.linspace(0, n, 65, dtype=np.int64)
+        mbh = {}
+        for m in range(8):
+            ex = ctx.executors[m % 4]
+            w = ex.get_writer(handle, m)
+            for b in range(m * 8, m * 8 + 8):
+                w.write_columns(ColumnBatch(keys[cuts[b]:cuts[b + 1]],
+                                            vals[cuts[b]:cuts[b + 1]]))
+            w.stop(True)
+            mbh.setdefault(ex.local_smid, []).append(m)
+        got = {}
+        for p in range(64):
+            for k, v in ctx.executors[p % 4].get_reader(handle, p, p + 1,
+                                                        mbh).read():
+                got[int(k)] = int(v)
+        c1 = snap()
+    sums = np.bincount(keys, weights=vals)
+    want = {int(k): int(sums[k]) for k in np.unique(keys)}
+    assert got == want
+    return got, {k: c1[k] - c0[k] for k in names}
+
+
+@pytest.mark.gpu
+def test_push_skew_tier_on_card(cuda_device, tmp_path):
+    """Push merge, skew split and the tiered store together with map
+    outputs staged on the card: the sums equal the host plane's and
+    numpy's, every feature engaged, and device memory returns to its
+    start after stop()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    got, moved = _push_skew_tier(cuda_device, True, tmp_path)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    assert all(v > 0 for v in moved.values()), moved
+    ref, ref_moved = _push_skew_tier("cpu", False, tmp_path)
+    assert got == ref
+    assert ref_moved["staging_h2d_bytes_total"] == 0

@@ -4,9 +4,10 @@ worlds.
 
 Each world is spawned once per module (tests/torch_multihost_worker.py,
 which imports neither JAX nor this conftest), over a ``file://`` store,
-with its control plane on fixed TCP ports (``TWO_BASE`` and
-``FOUR_BASE`` of the worker: 29920, 29930-29931, 29950 and
-29960-29963), which no JAX test binds or reaches by its bind hunt.  The JAX
+with its control plane on fixed TCP ports (``TWO_BASE``, ``FOUR_BASE``
+and ``LATE_BASE`` of the worker: 29920, 29930-29931, 29950,
+29960-29963, 29980 and 29990-29991), which no JAX test binds or reaches
+by its bind hunt.  The JAX
 counterparts (tests/test_multihost.py) skip on the CPU, whose JAX
 backend has no multi-process collectives, so the expectations come from
 the records themselves, as the JAX workers compute them, and from the
@@ -22,14 +23,21 @@ maps.
 - 4 processes: the windowed plane over 8 maps in windows of 3 with the
   straggler overlap, then rank 3 SIGKILLs itself and every survivor's
   pending reader fails promptly with a stage-retriable error.
+- 2 processes, one executor's messages to the driver held back: the
+  windowed plane still completes, because a plan request waits until
+  the driver has announced every row of the exchange (before that
+  repair the first window pinned the prompt executor alone and the
+  exchange stalled).
 """
 
+import fcntl
 import os
 import pathlib
 import pickle
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import pytest
@@ -37,13 +45,18 @@ import pytest
 import torch_multihost_worker as worker
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-WORLD_TIMEOUT_S = {"two": 150, "four": 200}
+WORLD_TIMEOUT_S = {"two": 150, "four": 200, "late": 120}
 VICTIM = 3
 
 
 def _run_world(phase, world, tmp, sigkilled=()):
     store = tmp / "store"
     env = dict(os.environ, PYTHONPATH=str(REPO))
+    # a world binds fixed ports, and two test workers may each spawn the
+    # same module-scoped world: the worlds take turns under a lock file
+    lock = open(os.path.join(tempfile.gettempdir(),
+                             "sparkrdma_tpu_torch_multihost_ports.lock"), "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)
     procs = [
         subprocess.Popen(
             [sys.executable, str(pathlib.Path(worker.__file__)), phase,
@@ -64,6 +77,7 @@ def _run_world(phase, world, tmp, sigkilled=()):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        lock.close()
     for r, (p, out) in enumerate(zip(procs, outs)):
         if r in sigkilled:
             assert p.returncode == -signal.SIGKILL, (r, p.returncode, out)
@@ -85,6 +99,11 @@ def two(tmp_path_factory):
 def four(tmp_path_factory):
     return _run_world("four", 4, tmp_path_factory.mktemp("mh4"),
                       sigkilled=(VICTIM,))
+
+
+@pytest.fixture(scope="module")
+def late(tmp_path_factory):
+    return _run_world("late", 2, tmp_path_factory.mktemp("mhl"))[0]
 
 
 def _part():
@@ -137,6 +156,26 @@ def test_worlds_bind_their_fixed_ports(two, four):
         for r, res in enumerate(ranks):
             assert res["ports"] == dict(
                 executor=base + 10 + r, driver=base if r == 0 else None)
+
+
+def test_two_process_windowed_plane_waits_for_a_late_executor(late):
+    """Every message rank 1's executor sends the driver lands
+    ``LATE_S`` late, and nothing in the worker waits for the hellos.
+    The driver pins the host set at the first window; rank 0's first
+    plan request waits inside the library until rank 1 is announced,
+    so both ranks read every partition they own, window by window."""
+    assert worker.LATE_BASE == 29980
+    part = _part()
+    recs = [kv for m in range(2) for kv in worker.records("l", m, 40)]
+    for r, res in enumerate(late):
+        assert res["ports"] == dict(executor=worker.LATE_BASE + 10 + r,
+                                    driver=worker.LATE_BASE if r == 0
+                                    else None)
+        assert res["windows"] == [0, 1]
+        mine = [p for p in range(worker.NUM_PARTS) if p % 2 == r]
+        assert sorted(res["parts"]) == mine
+        for p in mine:
+            assert res["parts"][p] == worker.owned(recs, part, p)
 
 
 def test_two_process_collectives(two):

@@ -27,6 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_conf_matrix import (  # noqa: F401 - autouse
+    jax_free_keeps_mapping,
+)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 

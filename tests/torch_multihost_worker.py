@@ -19,13 +19,21 @@ whose exchange is rank-local over the world.  Results go to
   processes, 8 maps in windows of 3, straggler overlap; then rank 3
   SIGKILLs itself and every survivor's pending reader must fail
   promptly with a stage-retriable error.
+- ``late``: the windowed plane at 2 processes, windows of one map,
+  while every message the last rank's executor sends the driver (its
+  hello, publishes and plan requests) lands ``LATE_S`` late.  The
+  driver pins the plan's host set at the first window, so the other
+  rank's first plan request must wait until the late executor is
+  announced, or the late one is refused its plans and the exchange
+  stalls.
 
 The TCP ports are fixed (driver at BASE, executor r at BASE + 10 + r),
 so canonical host order equals rank order: ``TWO_BASE`` 29920 puts the
 two-process plane at 29920, 29930 and 29931, clear of the 16-port bind
 hunt above the JAX tiered store's executor at 29900; ``FOUR_BASE``
-29950 puts the four-process plane at 29950 and 29960-29963.  Each rank
-reports the ports it bound (``res["ports"]``).
+29950 puts the four-process plane at 29950 and 29960-29963;
+``LATE_BASE`` 29980 puts the late-executor plane at 29980, 29990 and
+29991.  Each rank reports the ports it bound (``res["ports"]``).
 """
 
 import os
@@ -40,6 +48,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 TWO_BASE = 29920
 FOUR_BASE = 29950
+LATE_BASE = 29980
+# how late the last rank's messages reach the driver
+LATE_S = 0.3
 NUM_PARTS = 8
 # collectives with a dead peer fail after this long, well inside the
 # test's limit
@@ -61,16 +72,16 @@ def _wait(cond, timeout, what):
     assert cond(), what
 
 
-def _manager(conf, base, rank, world):
+def _manager(conf, base, rank):
+    """This rank's executor.  Nothing waits here for the other
+    executors' hellos: a plan request waits until the driver has
+    announced every row of the exchange (``BulkExchangeReader``)."""
     from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
     from sparkrdma_tpu_torch.transport import TcpNetwork
 
-    mgr = TpuShuffleManager(conf, is_driver=False, network=TcpNetwork(),
-                            port=base + 10 + rank, executor_id=str(rank),
-                            device="cpu")
-    _wait(lambda: len(mgr._peers) == world, 60,
-          f"rank {rank}: announce did not reach everyone")
-    return mgr
+    return TpuShuffleManager(conf, is_driver=False, network=TcpNetwork(),
+                             port=base + 10 + rank, executor_id=str(rank),
+                             device="cpu")
 
 
 def _write(mgr, handle, map_id, recs):
@@ -187,7 +198,7 @@ def phase_two(rank, world, store, out_dir):
     except NonAddressableStreamError:
         res["remote_guarded"] = True
 
-    ex_mgr = _manager(conf, driver_port, rank, world)
+    ex_mgr = _manager(conf, driver_port, rank)
     res["ports"] = dict(
         executor=ex_mgr.node.address[1],
         driver=None if driver is None else driver.node.address[1])
@@ -320,7 +331,7 @@ def phase_four(rank, world, store, out_dir):
     multihost.initialize(coordinator_address=f"file://{store}",
                          num_processes=world, process_id=rank,
                          device="cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
-    ex_mgr = _manager(conf, driver_port, rank, world)
+    ex_mgr = _manager(conf, driver_port, rank)
     res["ports"] = dict(
         executor=ex_mgr.node.address[1],
         driver=None if driver is None else driver.node.address[1])
@@ -386,6 +397,76 @@ def phase_four(rank, world, store, out_dir):
     os._exit(0)
 
 
+def phase_late(rank, world, store, out_dir):
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+    from sparkrdma_tpu_torch.parallel import multihost
+    from sparkrdma_tpu_torch.parallel.exchange import TileExchange
+    from sparkrdma_tpu_torch.shuffle.bulk import WindowedReadPlane
+    from sparkrdma_tpu_torch.shuffle.manager import (
+        ShuffleHandle,
+        TpuShuffleManager,
+    )
+    from sparkrdma_tpu_torch.shuffle.partitioner import HashPartitioner
+    from sparkrdma_tpu_torch.transport import TcpNetwork
+
+    SHUFFLE = 75
+    conf = TpuShuffleConf({
+        "spark.shuffle.tpu.driverPort": LATE_BASE,
+        "spark.shuffle.tpu.partitionLocationFetchTimeout": "30s",
+        "spark.shuffle.tpu.connectTimeout": "10s",
+        "spark.shuffle.tpu.bulkWindowMaps": "1",
+        "spark.shuffle.tpu.bulkBarrierTimeout": "20s",
+        "spark.shuffle.tpu.readPlane": "windowed",
+    })
+    part = HashPartitioner(NUM_PARTS)
+    driver = None
+    if rank == 0:
+        driver = TpuShuffleManager(conf, is_driver=True,
+                                   network=TcpNetwork(), port=LATE_BASE,
+                                   device="cpu")
+        driver.register_shuffle(SHUFFLE, world, part)
+    if rank == world - 1:
+        send = TpuShuffleManager._send_driver_msg
+
+        def late(self, msg, on_failure=None):
+            def deliver():
+                try:
+                    send(self, msg, on_failure)
+                except Exception:  # noqa: BLE001 - the manager stopped
+                    pass
+
+            threading.Timer(LATE_S, deliver).start()
+
+        TpuShuffleManager._send_driver_msg = late
+    multihost.initialize(coordinator_address=f"file://{store}",
+                         num_processes=world, process_id=rank,
+                         device="cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
+    ex_mgr = _manager(conf, LATE_BASE, rank)
+    ex_mgr.windowed_plane = WindowedReadPlane(
+        ex_mgr, exchange=TileExchange(multihost.global_group("cpu"),
+                                      tile_bytes=1 << 12))
+    handle = ShuffleHandle(SHUFFLE, world, part)
+    _write(ex_mgr, handle, rank, records("l", rank, 40))
+    mine = [p for p in range(NUM_PARTS) if p % world == rank]
+    out, errs = {}, {}
+    for t in _read_parts(ex_mgr, handle, mine, out, errs):
+        t.join(timeout=60)
+    assert not errs, f"rank {rank}: {errs!r}"
+    res = {"parts": out, "windows": [
+        w for w, _t, _b in ex_mgr.windowed_plane.window_events(SHUFFLE)]}
+    res["ports"] = dict(
+        executor=ex_mgr.node.address[1],
+        driver=None if driver is None else driver.node.address[1])
+    dist.barrier()  # the driver outlives every read
+    ex_mgr.stop()
+    if driver is not None:
+        driver.stop()
+    dist.destroy_process_group()
+    return res
+
+
 def _dump(res, rank, out_dir):
     tmp = os.path.join(out_dir, f"rank{rank}.pkl.tmp")
     with open(tmp, "wb") as f:
@@ -396,7 +477,7 @@ def _dump(res, rank, out_dir):
 def main():
     phase, rank, world, store, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
-    fn = {"two": phase_two, "four": phase_four}[phase]
+    fn = {"two": phase_two, "four": phase_four, "late": phase_late}[phase]
     res = fn(rank, world, store, out_dir)
     _dump(res, rank, out_dir)
     print(f"rank {rank}: {phase} OK", flush=True)
