@@ -156,6 +156,23 @@ HF_SPLIT = "1m"             # skewSplitThreshold
 # average 1000 values of magnitude <= 1, so the two sums differ by far
 # less than this
 F32_ADD_ATOL = 1e-3
+# the network transport plane (phase_network_plane): config 1 (narrow
+# keys) through TpuShuffleContext over TcpNetwork, four jobs (staged and
+# on the host on the async engine, staged on the threaded engine, staged
+# over one stripe), and config 2 staged; then a ProcessCluster of
+# NET_CLUSTER_EXEC executor processes on card 0 over HiBench TeraSort
+# "small" (conf/workloads/micro/terasort.conf: hibench.terasort.small.
+# datasize 3 200 000 records of 100 B; the cluster's "terasort"
+# generator: 10 B key, 90 B value), NET_CLUSTER_MAPS maps and
+# NET_CLUSTER_PARTS partitions.  Every listener binds in 65300-65535,
+# above the kernel's ephemeral range: config 1's job j at NET_BASE + j
+# (j < 5; its executors at + 100 + 10 i), config 2's at NET_BASE + 6,
+# the cluster at NET_BASE + 5 (executors at + 100 + 40 i), the scrape
+# endpoint at NET_BASE + 99
+NET_BASE = 65300
+NET_CLUSTER_N, NET_CLUSTER_EXEC = 3_200_000, 4
+NET_CLUSTER_MAPS, NET_CLUSTER_PARTS = 8, 16
+NET_KILL_BOUND_S = 30.0     # a read of a SIGKILLed executor's blocks fails
 TENSOR_OPS_PER_S = 989e12   # bf16 dense tensor-core rate, H100 SXM
 ATTN_N = 8                  # benchmarks/bench_attention.py: H = 8,
 ATTN_S = 8192               # S = 8192, d_head = 128, bf16, causal
@@ -1462,6 +1479,80 @@ def _record_line(torch, dev, config, payload_bytes, n, staged, host,
           * 1e3, copies_of_staged_bytes=copies, correct=True)
 
 
+def _config2():
+    """Config 2's records, its reduceByKey job and the job's check
+    against a Python dict sum."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    records = [(int(k), 1) for k in rng.integers(0, REC2_KEYS, REC2_N)]
+    want = {}
+    for k, v in records:
+        want[k] = want.get(k, 0) + v
+
+    def job(ctx):
+        return ctx.parallelize(records, num_slices=REC2_SLICES) \
+            .reduce_by_key(lambda a, b: a + b,
+                           num_partitions=REC2_PARTS).collect()
+
+    def check(res):
+        got = dict(res)
+        require(len(res) == len(got) == REC2_KEYS and got == want
+                and sum(got.values()) == REC2_N,
+                "config 2: reduceByKey differs from the dict sum")
+
+    return job, check
+
+
+def _config1_data(np):
+    """Config 1's narrow and wide-range keys and its 64 B payloads (with
+    their 64-bit words)."""
+    rng = np.random.default_rng(0)
+    narrow = rng.integers(0, REC1_KEYS, REC1_N).astype(np.int64)
+    choices = rng.integers(0, 1 << 60, REC1_KEYS, dtype=np.int64)
+    wide = choices[rng.integers(0, REC1_KEYS, REC1_N)]
+    vals = np.frombuffer(np.random.default_rng(1).bytes(
+        REC1_N * REC1_PAYLOAD), dtype=f"S{REC1_PAYLOAD}")
+    words = vals.view(np.uint64).reshape(REC1_N, REC1_PAYLOAD // 8)
+    return narrow, wide, vals, words
+
+
+def _config1_job(np, shape, keys, vals, words):
+    """Config 1's groupByKey job over ``keys`` and its check against
+    numpy: group sizes (by ``np.bincount`` for the narrow keys) and each
+    group's payload by an order-independent sum of its 64-bit words."""
+    order = np.argsort(keys, kind="stable")
+    uk, heads, sizes = np.unique(keys[order], return_index=True,
+                                 return_counts=True)
+    sums = np.add.reduceat(words[order], heads, axis=0)
+    del order
+    oracle = {int(k): (int(s), row.tobytes())
+              for k, s, row in zip(uk, sizes, sums)}
+
+    def job(ctx):
+        return ctx.parallelize_columns(keys, vals, num_slices=REC1_SLICES) \
+            .group_by_key(num_partitions=REC1_PARTS).collect()
+
+    def check(res):
+        require(len(res) == REC1_KEYS == len(oracle),
+                f"config 1 {shape}: {len(res)} groups")
+        for k, grp in res:
+            g = np.ascontiguousarray(grp).view(np.uint64) \
+                .reshape(-1, REC1_PAYLOAD // 8)
+            size, s = oracle[int(k)]
+            require(g.shape[0] == size,
+                    f"config 1 {shape}: group {k} size {g.shape[0]}")
+            require(g.sum(axis=0, dtype=np.uint64).tobytes() == s,
+                    f"config 1 {shape}: group {k} payload differs")
+        if shape == "narrow":
+            require(np.array_equal(np.bincount(keys, minlength=REC1_KEYS),
+                                   np.array([oracle[k][0] for k in
+                                             range(REC1_KEYS)])),
+                    "config 1: np.bincount disagrees")
+
+    return job, check
+
+
 def phase_record_plane(torch, dev):
     """The record-level shuffle through ``TpuShuffleContext`` on the host
     read plane: write, commit (each map output copied into a uint8
@@ -1472,50 +1563,33 @@ def phase_record_plane(torch, dev):
     over 512 keys, narrow and wide-range, checked against numpy (group
     sizes by ``np.bincount``, each group's payload by an
     order-independent sum of its 64-bit words).  Each runs with map
-    outputs staged on the card and, beside it, kept on the host."""
+    outputs staged on the card and, beside it, kept on the host.
+    Returns the staged and host-only seconds of config 2 and of config 1
+    with narrow keys (``network_plane`` sets its TCP jobs beside them)."""
     import numpy as np
 
     from sparkrdma_tpu_torch.api import TpuShuffleContext
     from sparkrdma_tpu_torch.conf import TpuShuffleConf
 
-    rng = np.random.default_rng(1)
-    records = [(int(k), 1) for k in rng.integers(0, REC2_KEYS, REC2_N)]
-    want = {}
-    for k, v in records:
-        want[k] = want.get(k, 0) + v
+    loopback = {}
+    c2_job, c2_check = _config2()
 
     def c2_ctx(stage):
         return TpuShuffleContext(num_executors=REC2_EXEC, device=dev,
                                  stage_to_device=stage)
 
-    def c2_job(ctx):
-        return ctx.parallelize(records, num_slices=REC2_SLICES) \
-            .reduce_by_key(lambda a, b: a + b,
-                           num_partitions=REC2_PARTS).collect()
-
-    def c2_check(res):
-        got = dict(res)
-        require(len(res) == len(got) == REC2_KEYS and got == want
-                and sum(got.values()) == REC2_N,
-                "config 2: reduceByKey differs from the dict sum")
-
     staged = _record_job(torch, dev, True, c2_ctx, c2_job, c2_check,
                          label="record_plane_config2")
     host = _record_job(torch, dev, False, c2_ctx, c2_job, c2_check)
+    loopback["2"] = (staged["seconds_min"], host["seconds_min"])
     _record_line(torch, dev, "2: reduceByKey loopback", REC2_N * 16,
                  REC2_N, staged, host, payload="2 x int64 per record",
                  keys=REC2_KEYS, executors=REC2_EXEC,
                  slices=REC2_SLICES, partitions=REC2_PARTS,
                  serializer="pickle")
-    del records
+    del c2_job, c2_check
 
-    rng = np.random.default_rng(0)
-    narrow = rng.integers(0, REC1_KEYS, REC1_N).astype(np.int64)
-    choices = rng.integers(0, 1 << 60, REC1_KEYS, dtype=np.int64)
-    wide = choices[rng.integers(0, REC1_KEYS, REC1_N)]
-    vals = np.frombuffer(np.random.default_rng(1).bytes(
-        REC1_N * REC1_PAYLOAD), dtype=f"S{REC1_PAYLOAD}")
-    words = vals.view(np.uint64).reshape(REC1_N, REC1_PAYLOAD // 8)
+    narrow, wide, vals, words = _config1_data(np)
     conf = {"spark.shuffle.tpu.serializer": "columnar"}
 
     def c1_ctx(stage):
@@ -1525,45 +1599,19 @@ def phase_record_plane(torch, dev):
                                  stage_to_device=stage)
 
     for shape, keys in (("narrow", narrow), ("wide-range", wide)):
-        order = np.argsort(keys, kind="stable")
-        uk, heads, sizes = np.unique(keys[order], return_index=True,
-                                     return_counts=True)
-        sums = np.add.reduceat(words[order], heads, axis=0)
-        del order
-        oracle = {int(k): (int(s), row.tobytes())
-                  for k, s, row in zip(uk, sizes, sums)}
-
-        def c1_job(ctx, keys=keys):
-            return ctx.parallelize_columns(keys, vals,
-                                           num_slices=REC1_SLICES) \
-                .group_by_key(num_partitions=REC1_PARTS).collect()
-
-        def c1_check(res, oracle=oracle, keys=keys):
-            require(len(res) == REC1_KEYS == len(oracle),
-                    f"config 1 {shape}: {len(res)} groups")
-            for k, grp in res:
-                g = np.ascontiguousarray(grp).view(np.uint64) \
-                    .reshape(-1, REC1_PAYLOAD // 8)
-                size, s = oracle[int(k)]
-                require(g.shape[0] == size,
-                        f"config 1 {shape}: group {k} size {g.shape[0]}")
-                require(g.sum(axis=0, dtype=np.uint64).tobytes() == s,
-                        f"config 1 {shape}: group {k} payload differs")
-            if shape == "narrow":
-                require(np.array_equal(np.bincount(keys, minlength=REC1_KEYS),
-                                       np.array([oracle[k][0] for k in
-                                                 range(REC1_KEYS)])),
-                        "config 1: np.bincount disagrees")
-
+        c1_job, c1_check = _config1_job(np, shape, keys, vals, words)
         staged = _record_job(torch, dev, True, c1_ctx, c1_job, c1_check,
                              label=f"record_plane_config1_{shape}")
         host = _record_job(torch, dev, False, c1_ctx, c1_job, c1_check)
+        if shape == "narrow":
+            loopback["1"] = (staged["seconds_min"], host["seconds_min"])
         _record_line(torch, dev, f"1: groupByKey columnar, {shape} keys",
                      REC1_N * REC1_PAYLOAD, REC1_N, staged, host,
                      key_bytes=REC1_N * 8, keys=REC1_KEYS,
                      executors=REC1_EXEC, slices=REC1_SLICES,
                      partitions=REC1_PARTS, serializer="columnar")
-        del oracle, sums
+        del c1_job, c1_check
+    return loopback
 
 
 def _key_digests(np, keys, rows):
@@ -2215,6 +2263,378 @@ def phase_host_features(torch, _build, gen, dev):
     finally:
         registry.enabled = was_on
         shutil.rmtree(spill_dir, ignore_errors=True)
+    return launches
+
+
+def _terasort_map_digests(gen, map_id, parts):
+    """One TeraSort map's records by partition: {partition: digest}.
+    Runs in a pool process, beside the cluster."""
+    from sparkrdma_tpu_torch.shuffle.partitioner import HashPartitioner
+    from sparkrdma_tpu_torch.transport.simfleet import (
+        _gen_records,
+        records_digest,
+    )
+
+    part = HashPartitioner(parts)
+    by = {}
+    for rec in _gen_records(gen, map_id):
+        by.setdefault(part.partition(rec[0]), []).append(rec)
+    return {p: records_digest(r) for p, r in by.items()}
+
+
+def _merge_digests(digests):
+    """Digests of disjoint record sets, combined as ``records_digest``
+    combines records: counts and sums add (mod 2^64), CRCs xor."""
+    out = {"count": 0, "sum": 0, "xor": 0}
+    for d in digests:
+        out["count"] += d["count"]
+        out["sum"] = (out["sum"] + d["sum"]) & 0xFFFFFFFFFFFFFFFF
+        out["xor"] ^= d["xor"]
+    return out
+
+
+def _tcp_counters():
+    """Bytes over sockets (sent and received, ``transport="tcp"``) and
+    the payload bytes the readers fetched remotely, from the metrics
+    registry."""
+    from sparkrdma_tpu_torch.metrics import get_registry
+
+    got = {"sent": 0, "received": 0, "remote_read": 0, "local_read": 0}
+    for c in get_registry().snapshot()["counters"]:
+        lab = c["labels"]
+        if c["name"] == "transport_bytes_sent_total" \
+                and lab.get("transport") == "tcp":
+            got["sent"] += c["value"]
+        elif c["name"] == "transport_bytes_received_total" \
+                and lab.get("transport") == "tcp":
+            got["received"] += c["value"]
+        elif c["name"] == "shuffle_read_bytes_total" \
+                and lab.get("source") in ("local", "remote"):
+            got[lab["source"] + "_read"] += c["value"]
+    return got
+
+
+def _scrape_tcp_sent(url):
+    """``transport_bytes_sent_total{transport="tcp"}`` from a live
+    ``/metrics`` scrape."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        text = resp.read().decode()
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith("transport_bytes_sent_total{") \
+                and 'transport="tcp"' in line:
+            total += float(line.rpartition(" ")[2])
+    return total
+
+
+def _network_cluster(torch, seconds_bound):
+    """A driver here and NET_CLUSTER_EXEC executor processes, all on card
+    0 over real sockets: HiBench TeraSort "small" written by the
+    executors, every partition's digest against the parent's
+    recomputation (a process pool, while the cluster runs), the census,
+    a SIGKILLed executor's blocks failing their read cleanly within
+    ``seconds_bound``, and the fleet's flight-recorder dumps merged."""
+    import concurrent.futures
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from sparkrdma_tpu_torch.transport.simfleet import (
+        ExecutorCommandError,
+        ProcessCluster,
+    )
+
+    per_map = NET_CLUSTER_N // NET_CLUSTER_MAPS
+    gen = {"kind": "terasort", "records": per_map, "value_len": 90}
+    workdir = tempfile.mkdtemp(prefix="network_plane_cluster_")
+    base = NET_BASE + 5
+    pool = concurrent.futures.ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    oracle = [pool.submit(_terasort_map_digests, gen, m, NET_CLUSTER_PARTS)
+              for m in range(NET_CLUSTER_MAPS)]
+    t0 = time.monotonic()
+    cluster = ProcessCluster(
+        NET_CLUSTER_EXEC, base, device="cuda:0", workdir=workdir,
+        conf={"spark.shuffle.tpu.partitionLocationFetchTimeout": "60s",
+              "spark.shuffle.tpu.connectTimeout": "10s",
+              "spark.shuffle.tpu.fetchRetryWaitMs": "100ms"})
+    try:
+        start_s = time.monotonic() - t0
+        want_ports = [base + 100 + 40 * i for i in range(NET_CLUSTER_EXEC)]
+        got = {"driver_port": cluster.driver.node.address[1],
+               "executor_ports": [ex.info["address"][1]
+                                  for ex in cluster.executors],
+               "executor_devices": [ex.info["device"]
+                                    for ex in cluster.executors],
+               "executor_current_cards": [ex.info["cuda_current"]
+                                          for ex in cluster.executors]}
+        require(got["driver_port"] == base
+                and got["executor_ports"] == want_ports,
+                f"cluster listeners moved: {got}")
+        require(got["executor_devices"] == ["cuda:0"] * NET_CLUSTER_EXEC
+                and got["executor_current_cards"]
+                == [0] * NET_CLUSTER_EXEC,
+                f"an executor is not on card 0: {got}")
+        require(str(cluster.driver.device) == "cuda:0",
+                f"the driver is on {cluster.driver.device}")
+        sid = 21
+        cluster.register(sid, num_maps=NET_CLUSTER_MAPS,
+                         partitioner=("hash", NET_CLUSTER_PARTS))
+        t1 = time.monotonic()
+        for m in range(NET_CLUSTER_MAPS):
+            cluster.executors[m % NET_CLUSTER_EXEC].send(
+                "write", shuffle_id=sid, map_id=m, gen=gen)
+        for m in range(NET_CLUSTER_MAPS):
+            cluster.executors[m % NET_CLUSTER_EXEC].recv(300.0)
+        mbh = cluster.wait_published(sid, NET_CLUSTER_MAPS)
+        write_s = time.monotonic() - t1
+        t1 = time.monotonic()
+        digests = {}
+        for lo in range(0, NET_CLUSTER_PARTS, NET_CLUSTER_EXEC):
+            for i, ex in enumerate(cluster.executors):
+                ex.send("read", shuffle_id=sid, start=lo + i,
+                        end=lo + i + 1, maps_by_host=mbh, digest=True)
+            for i, ex in enumerate(cluster.executors):
+                digests[lo + i] = ex.recv(300.0)["digest"]
+        read_s = time.monotonic() - t1
+        per_part = [r.result(timeout=300) for r in oracle]
+        want = {p: _merge_digests(d[p] for d in per_part if p in d)
+                for p in range(NET_CLUSTER_PARTS)}
+        bad = [p for p in range(NET_CLUSTER_PARTS) if digests[p] != want[p]]
+        require(not bad, f"cluster partitions {bad} differ from the "
+                "parent's recomputation")
+        require(sum(d["count"] for d in digests.values()) == NET_CLUSTER_N,
+                "cluster read a wrong record count")
+        census = cluster.census()
+        require(sorted(census["executors"]) == list(range(NET_CLUSTER_EXEC)),
+                f"census misses executors: {sorted(census['executors'])}")
+        # SIGKILL the last executor mid-stage: its blocks' reads fail
+        victim = NET_CLUSTER_EXEC - 1
+        cluster.kill(victim)
+        require(not cluster.executors[victim].alive, "victim still alive")
+        t1 = time.monotonic()
+        kind = None
+        try:
+            cluster.call(0, "read", timeout=seconds_bound * 4,
+                         shuffle_id=sid, start=0, end=1, maps_by_host=mbh,
+                         digest=True)
+        except ExecutorCommandError as e:
+            kind = e.kind
+        kill_s = time.monotonic() - t1
+        require(kind == "FetchFailedError",
+                f"read of a killed executor's blocks ended with {kind}")
+        require(kill_s < seconds_bound,
+                f"the failed read took {kill_s:.1f} s > {seconds_bound} s")
+        survivors = {k: v for k, v in mbh.items()
+                     if k.port != want_ports[victim]}
+        part0 = cluster.call(0, "read", shuffle_id=sid, start=0, end=1,
+                             maps_by_host=survivors, digest=True)
+        require(part0["digest"] == _merge_digests(
+            d[0] for m, d in enumerate(per_part)
+            if m % NET_CLUSTER_EXEC != victim and 0 in d),
+            "the survivors' blocks of partition 0 differ")
+        cluster.stop()
+        merged = cluster.collect()
+        require(len(merged["dump_paths"]) >= NET_CLUSTER_EXEC
+                and len(merged["processes"]) == len(merged["dump_paths"]),
+                f"fleet dumps: {merged['dump_paths']}")
+        return dict(
+            records=NET_CLUSTER_N, record_bytes=100, maps=NET_CLUSTER_MAPS,
+            partitions=NET_CLUSTER_PARTS, executors=NET_CLUSTER_EXEC,
+            start_s=start_s, write_s=write_s, read_s=read_s,
+            mrec_per_s_read=NET_CLUSTER_N / read_s / 1e6,
+            gb_per_s_read=NET_CLUSTER_N * 100 / read_s / 1e9,
+            kill_failed_in_s=kill_s, kill_bound_s=seconds_bound,
+            kill_outcome=kind, census={
+                "driver": census["driver"],
+                "executors": {i: c["census"] for i, c in
+                              census["executors"].items()}},
+            dumps=len(merged["dump_paths"]),
+            merged_processes=len(merged["processes"]), **got)
+    finally:
+        cluster.stop(graceful=False)
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_network_plane(torch, _build, dev, loopback):
+    """The record-level shuffle over real sockets: config 1 (narrow keys)
+    through ``TpuShuffleContext(network=TcpNetwork())`` staged (and
+    profiled) and on the host on the async engine, staged on the
+    threaded engine, staged over one stripe, and staged with ``metrics``
+    on, scraped over HTTP (``qos/http.py``) while it runs, its bytes
+    over sockets at least the payload its readers fetched remotely;
+    each against config 1's oracle and beside the loopback job's seconds
+    (``loopback``, from ``record_plane``).  Config 2 staged against its
+    dict sum; ``ctx.device_aggregate`` (kernel 1) over config 1's keys
+    against the job's group sizes and sums; then a ``ProcessCluster``
+    on the card (``_network_cluster``).  Returns kernel 1's
+    launches."""
+    import threading
+
+    import numpy as np
+
+    from sparkrdma_tpu_torch.api import TpuShuffleContext
+    from sparkrdma_tpu_torch.conf import TpuShuffleConf
+    from sparkrdma_tpu_torch.metrics import get_registry
+    from sparkrdma_tpu_torch.qos.http import MetricsHttpServer
+    from sparkrdma_tpu_torch.transport import TcpNetwork
+
+    registry = get_registry()
+    was_on = registry.enabled
+    narrow, _wide, vals, words = _config1_data(np)
+    del _wide
+    c1_job, c1_check = _config1_job(np, "narrow", narrow, vals, words)
+    groups = {}
+
+    def keep_groups(res):
+        c1_check(res)
+        groups["res"] = res
+
+    jobs = [  # (name, staged, conf); the last with metrics on
+        ("async staged", True, {}),
+        ("async host", False, {}),
+        ("threaded staged", True,
+         {"spark.shuffle.tpu.transportAsyncDispatcher": False}),
+        ("one stripe staged", True,
+         {"spark.shuffle.tpu.transportNumStripes": 1}),
+        ("async staged, metrics on", True, {}),
+    ]
+    scrape = MetricsHttpServer(NET_BASE + 99)
+    require(scrape.port == NET_BASE + 99, f"scrape bound {scrape.port}")
+    scrapes = []
+
+    def scraped(ctx):
+        """The job in a thread, ``/metrics`` scraped while it runs and
+        after it."""
+        box = {}
+
+        def run():
+            try:
+                box["res"] = c1_job(ctx)
+            except BaseException as e:  # re-raised below
+                box["err"] = e
+
+        t = threading.Thread(target=run)
+        sent0 = _scrape_tcp_sent(scrape.url())
+        t.start()
+        mid = []
+        while t.is_alive():
+            time.sleep(0.1)
+            mid.append(_scrape_tcp_sent(scrape.url()))
+        t.join()
+        if "err" in box:
+            raise box["err"]
+        scrapes.append((sent0, mid, _scrape_tcp_sent(scrape.url())))
+        return box["res"]
+
+    try:
+        for j, (name, stage, extra) in enumerate(jobs):
+            metrics = j == len(jobs) - 1
+            registry.enabled = metrics
+
+            def make_ctx(stage, j=j, extra=extra, metrics=metrics):
+                conf = {"spark.shuffle.tpu.serializer": "columnar",
+                        "spark.shuffle.tpu.metrics": metrics, **extra}
+                ctx = TpuShuffleContext(
+                    num_executors=REC1_EXEC, conf=TpuShuffleConf(conf),
+                    network=TcpNetwork(), base_port=NET_BASE + j,
+                    tasks_per_executor=REC1_TASKS, device=dev,
+                    stage_to_device=stage)
+                ports = [m.node.address[1]
+                         for m in [ctx.driver] + ctx.executors]
+                want = [NET_BASE + j] + [NET_BASE + j + 100 + 10 * i
+                                         for i in range(REC1_EXEC)]
+                if ports != want:
+                    ctx.stop()
+                    raise SmokeError(f"{name}: listeners at {ports}")
+                return ctx
+
+            c0 = _tcp_counters()
+            res = _record_job(
+                torch, dev, stage, make_ctx,
+                scraped if metrics else c1_job,
+                keep_groups if metrics else c1_check,
+                label="network_plane_async_staged" if j == 0 else None)
+            c1 = _tcp_counters()
+            registry.enabled = was_on
+            d = {k: c1[k] - c0[k] for k in c0}
+            secs = res["seconds_min"]
+            line = dict(job=name, conf=extra, staged=stage,
+                        n_records=REC1_N,
+                        payload_bytes=REC1_N * REC1_PAYLOAD, seconds=secs,
+                        mrec_per_s=REC1_N / secs / 1e6,
+                        gb_per_s=REC1_N * REC1_PAYLOAD / secs / 1e9,
+                        loopback_seconds=loopback["1"][0 if stage else 1],
+                        tcp_over_loopback=secs / loopback["1"][
+                            0 if stage else 1], run=res)
+            if metrics:
+                sent0, mid, end = scrapes[-1]
+                jobs_run = res["jobs"]
+                line.update(
+                    bytes_over_sockets_sent=d["sent"] / jobs_run,
+                    bytes_over_sockets_received=d["received"] / jobs_run,
+                    remote_read_bytes=d["remote_read"] / jobs_run,
+                    local_read_bytes=d["local_read"] / jobs_run,
+                    scrape={"before": sent0, "during": len(mid),
+                            "last_during": mid[-1] if mid else None,
+                            "after": end})
+                require(d["sent"] > 0 and d["received"] > 0,
+                        f"no bytes crossed a socket: {d}")
+                require(end - sent0 >= d["remote_read"] / jobs_run > 0,
+                        f"the scrape saw {end - sent0} B sent, less than "
+                        f"the {d['remote_read'] / jobs_run} B read remotely")
+            phase("network_plane", part="config1_tcp", config="1: "
+                  "groupByKey columnar, narrow keys", keys=REC1_KEYS,
+                  executors=REC1_EXEC, slices=REC1_SLICES,
+                  partitions=REC1_PARTS, **line, correct=True)
+
+        c2_job, c2_check = _config2()
+
+        def c2_ctx(stage):
+            return TpuShuffleContext(num_executors=REC2_EXEC, device=dev,
+                                     network=TcpNetwork(),
+                                     base_port=NET_BASE + 6,
+                                     stage_to_device=stage)
+
+        res2 = _record_job(torch, dev, True, c2_ctx, c2_job, c2_check)
+        phase("network_plane", part="config2_tcp",
+              config="2: reduceByKey", n_records=REC2_N, keys=REC2_KEYS,
+              executors=REC2_EXEC, staged=True, seconds=res2["seconds_min"],
+              mrec_per_s=REC2_N / res2["seconds_min"] / 1e6,
+              loopback_seconds=loopback["2"][0], run=res2, correct=True)
+        del c2_job, c2_check
+
+        # kernel 1 over the TCP job's keys: per key the group size and
+        # the sum of each payload's first byte
+        first = vals.view(np.uint8)[::REC1_PAYLOAD].astype(np.int64)
+        want = {}
+        for k, grp in groups["res"]:
+            g = np.ascontiguousarray(grp).view(np.uint8) \
+                .reshape(-1, REC1_PAYLOAD)
+            want[int(k)] = (int(g[:, 0].astype(np.int64).sum()), g.shape[0])
+        with TpuShuffleContext(num_executors=1, device=dev) as ctx:
+            _build.reset_launch_counts()
+            t0 = time.monotonic()
+            agg = ctx.device_aggregate(narrow, first)
+            torch.cuda.synchronize()
+            agg_s = time.monotonic() - t0
+            launches = _build.launch_counts()["flagged_scan"]
+        require(launches > 0, "ctx.device_aggregate launched no scan")
+        require({k: (st[0], st[1]) for k, st in agg.items()} == want,
+                "ctx.device_aggregate differs from the TCP job's groups")
+        phase("network_plane", part="device_aggregate", n=REC1_N,
+              keys=REC1_KEYS, seconds=agg_s, flagged_scan_launches=launches,
+              correct=True)
+        del groups["res"], narrow, vals, words
+    finally:
+        registry.enabled = was_on
+        scrape.stop()
+
+    phase("network_plane", part="process_cluster",
+          **_network_cluster(torch, NET_KILL_BOUND_S), correct=True)
     return launches
 
 
@@ -3328,11 +3748,14 @@ def main(argv=None) -> int:
         # the attention profiles after it
         phase_byte_plane(torch, dev)
         torch.cuda.empty_cache()
-        phase_record_plane(torch, dev)
+        loopback = phase_record_plane(torch, dev)
         torch.cuda.empty_cache()
         phase_device_read_plane(torch, dev)
         torch.cuda.empty_cache()
         scan_k["launches"] += phase_host_features(torch, _build, gen, dev)
+        torch.cuda.empty_cache()
+        scan_k["launches"] += phase_network_plane(torch, _build, dev,
+                                                  loopback)
         torch.cuda.empty_cache()
         scan_k["launches"] += phase_device_workloads(torch, _build, gen,
                                                      dev)

@@ -224,6 +224,10 @@ class MappedFile:
                 raise ValueError(f"mapped file {self.path} already freed")
             self._map(self._length)
             arr = self.array
+            if arr is None:
+                # free() landed between the check above and this read
+                raise ValueError(f"mapped file {self.path} freed while "
+                                 "it was being mapped")
         return arr
 
     def _map(self, length: int) -> None:

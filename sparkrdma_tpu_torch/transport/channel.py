@@ -200,7 +200,6 @@ class Channel(StateMachine):
         """Post control-plane frames (reference: rdmaSendInQueue,
         RdmaChannel.java:476-505).  Never blocks: if the send budget is
         exhausted the operation is queued FIFO."""
-        self._check_usable()
         self._enqueue(lambda: self._post_rpc(list(frames), listener), listener)
 
     def read_blocks(
@@ -229,7 +228,6 @@ class Channel(StateMachine):
         ``ctx`` is an optional trace context (obs/) the engine carries
         to the serving node — the v2 read-request tail — so serve-side
         spans join the requester's trace; None costs nothing."""
-        self._check_usable()
         if dest is None and on_progress is None and ctx is None:
             self._enqueue(
                 lambda: self._post_read(list(locations), listener), listener
@@ -248,20 +246,37 @@ class Channel(StateMachine):
         channel cache consults before evicting: a channel with work in
         flight is never torn out from under its listeners.  Both
         engines route every op through the base-class listener
-        machinery, so this covers reads and RPC sends alike."""
-        with self._outstanding_lock:
-            n = len(self._outstanding)
-        with self._pending_lock:
-            return n + len(self._pending)
+        machinery, so this covers reads and RPC sends alike.  Both sets
+        are read under their locks together: a pending op is promoted
+        (``_release_budget``) under the same two, so the count never
+        reads 0 while an op moves from one set to the other."""
+        with self._pending_lock, self._outstanding_lock:
+            return len(self._outstanding) + len(self._pending)
+
+    def stop_if_idle(self) -> bool:
+        """The channel cache's eviction test, atomic with admission: with
+        nothing in flight, move to STOPPED, so that every later post
+        raises synchronously in ``_check_usable`` (its caller re-resolves
+        through the cache), and return True; the caller then runs
+        ``stop()`` for the engine's teardown.  With an op in flight,
+        change nothing and return False.  A plain ``in_flight()`` check
+        followed by ``stop()`` let a post land between the two and fail
+        through its listener instead."""
+        with self._state_lock:
+            if self.in_flight():
+                return False
+            if self._state != ChannelState.STOPPED:
+                self._transition(ChannelState.STOPPED)
+        return True
 
     def stop(self) -> None:
         """Teardown: fail every outstanding / pending listener
-        (reference: RdmaChannel.java:788-869)."""
+        (reference: RdmaChannel.java:788-869).  Runs its drain after
+        ``stop_if_idle`` too, which only moved the state."""
         with self._state_lock:
-            if self._state == ChannelState.STOPPED:
-                return
-            self._transition(ChannelState.STOPPED)
-        g, self._m_active_gauge = self._m_active_gauge, None
+            if self._state != ChannelState.STOPPED:
+                self._transition(ChannelState.STOPPED)
+            g, self._m_active_gauge = self._m_active_gauge, None
         if g is not None:
             g.dec()
         err = TransportError("channel stopped")
@@ -278,27 +293,18 @@ class Channel(StateMachine):
 
     # -- budget / pending machinery -----------------------------------------
     def _enqueue(self, post_fn: Callable[[], None], listener: CompletionListener):
-        if self._budget.acquire(blocking=False):
-            self._track(listener)
-            if self._state == ChannelState.STOPPED:
-                # raced stop() between _check_usable and _track: its
-                # outstanding drain may have run before this op was
-                # visible, so nothing would ever fail it — fail it
-                # here (a drain that DID see it double-fails, which
-                # listeners absorb as first-outcome-wins)
-                self._fail(listener, TransportError("channel stopped"))
-                self._budget.release()
-                return
-            self._run_post(post_fn, listener)
-        else:
-            with self._pending_lock:
-                if self._state != ChannelState.STOPPED:
+        # admission under the state lock: stop() and stop_if_idle()
+        # take it too, so an op is either tracked (in flight, and a
+        # later stop fails it through its listener) or refused here,
+        # synchronously, before its listener is touched
+        with self._state_lock:
+            self._check_usable()
+            if not self._budget.acquire(blocking=False):
+                with self._pending_lock:
                     self._pending.append((post_fn, listener))
-                    return
-            # stop() set STOPPED before draining _pending under this
-            # same lock: reaching here means the drain already ran and
-            # an append would be orphaned on a dead channel forever
-            self._fail(listener, TransportError("channel stopped"))
+                return
+            self._track(listener)
+        self._run_post(post_fn, listener)
 
     def _run_post(self, post_fn, listener) -> None:
         try:
@@ -317,11 +323,14 @@ class Channel(StateMachine):
         (reference: exhaustCq draining pendingSends)."""
         with self._pending_lock:
             nxt = self._pending.popleft() if self._pending else None
+            if nxt is not None:
+                # tracked before the pending lock drops: in_flight()
+                # sees the op in one set or the other, never in neither
+                self._track(nxt[1])
         if nxt is None:
             self._budget.release()
             return
         post_fn, listener = nxt
-        self._track(listener)
         self._run_post(post_fn, listener)
 
     # -- completion plumbing ------------------------------------------------

@@ -730,11 +730,13 @@ class Node:
         """Shrink the channel cache back under the conf cap: victims
         are the idle-coldest cached channels (LRU by last use), never
         one with in-flight ops — the listener/descriptor machinery is
-        the refcount (``Channel.in_flight``) — and never ``keep`` (the
-        key whose channel the caller is about to hand out).  Victims
-        are stopped OUTSIDE the cache lock; a racing user that already
-        holds a victim sees a synchronous post error and re-resolves
-        through get_channel, which reconnects the evicted key."""
+        the refcount (``Channel.in_flight``), checked atomically with
+        admission by ``Channel.stop_if_idle`` — and never ``keep``
+        (the key whose channel the caller is about to hand out).
+        Victims are stopped OUTSIDE the cache lock; a racing user that
+        already holds a victim sees a synchronous post error and
+        re-resolves through get_channel, which reconnects the evicted
+        key."""
         cap = self._max_cached
         if cap <= 0:
             return
@@ -755,7 +757,7 @@ class Node:
                 if k == keep:
                     continue
                 ch = self._active[k]
-                if ch.in_flight():
+                if not ch.stop_if_idle():
                     self._m_evict_refusals.inc()
                     continue
                 del self._active[k]

@@ -553,6 +553,11 @@ def _executor_proc_main(idx, conf_map, host, port_base, log_path,
         "pid": os.getpid(),
         "smid": mgr.local_smid,
         "address": mgr.node.address,
+        # where this process runs: the manager's device, and the card
+        # CUDA selected (None on the CPU)
+        "device": str(mgr.device),
+        "cuda_current": (torch.cuda.current_device()
+                         if mgr.device.type == "cuda" else None),
     }))
     handles: dict = {}
     try:

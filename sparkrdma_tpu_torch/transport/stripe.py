@@ -30,7 +30,8 @@ type).  This module extends the split with fabric-lib-style striping:
 Lane channels come from the node's slot-keyed LRU channel cache, so an
 evicted lane transparently reconnects on the next read; a post that
 loses the eviction race (channel stopped between cache lookup and the
-post) re-resolves through the cache exactly once — see ``_post``.
+post) re-resolves through the cache, a bounded number of times — see
+``_post``.
 
 Failure contract: the first failing sub-read fails the WHOLE group
 read exactly once (each lane's ``_fail_outstanding`` covers its
@@ -59,6 +60,10 @@ from sparkrdma_tpu_torch.utils.dbglock import dbg_lock
 from sparkrdma_tpu_torch.utils.ledger import ledger_acquire
 from sparkrdma_tpu_torch.utils.statemachine import StateMachine
 from sparkrdma_tpu_torch.utils.types import BlockLocation
+
+# posts of one sub-read, each on a freshly resolved channel, before an
+# eviction race is given up as a failure
+_POST_ATTEMPTS = 8
 
 
 def _alloc_row(pool, nbytes: int) -> np.ndarray:
@@ -177,13 +182,16 @@ class ReadGroup:
 
     def _post(self, slot: int, locs, listener, dest=None,
               on_progress=None, ctx=None) -> None:
-        """Post one lane's sub-read, re-resolving the channel exactly
-        once if the cached channel was evicted between the cache lookup
-        and the post (``read_blocks`` raises synchronously BEFORE
-        touching the listener, so a retry can never double-deliver)."""
+        """Post one lane's sub-read, re-resolving the channel if the
+        cached channel was evicted between the cache lookup and the post
+        (``read_blocks`` raises synchronously BEFORE touching the
+        listener, so a retry can never double-deliver).  Under a tiny
+        cache cap a fresh channel can lose the race again, so the retry
+        is bounded (``_POST_ATTEMPTS``), not single; a peer that cannot
+        be reached fails in ``channel()`` itself."""
         if FAULTS.enabled and slot > 0:
             FAULTS.check("stripe")
-        for attempt in (0, 1):
+        for attempt in range(_POST_ATTEMPTS):
             ch = self.channel(slot)
             try:
                 if dest is None and on_progress is None and ctx is None:
@@ -194,7 +202,7 @@ class ReadGroup:
                         ctx=ctx,
                     )
             except TransportError:
-                if attempt:
+                if attempt == _POST_ATTEMPTS - 1:
                     raise
                 self._m_evict_races.inc()
                 continue

@@ -759,6 +759,13 @@ class TcpNetwork:
                 close_fn()
                 return
             try:
+                # wake the accept thread first: a close() alone leaves
+                # the socket listening (the port bound) for as long as
+                # that thread sits in accept()
+                srv.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
                 srv.close()
             except OSError:
                 pass

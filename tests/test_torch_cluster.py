@@ -88,6 +88,8 @@ def _write_all(cluster, shuffle_id, num_maps, gen):
 
 def test_cross_process_shuffle_bit_exact(cluster):
     assert cluster.executor_devices == ["cpu", "cpu"]
+    assert [(ex.info["device"], ex.info["cuda_current"])
+            for ex in cluster.executors] == [("cpu", None)] * 2
     assert cluster.driver.node.address[1] == BASE_PORT == 29620
     assert sorted(smid.port for smid in cluster.driver.executors) == [
         29720, 29760]

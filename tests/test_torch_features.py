@@ -956,3 +956,34 @@ def test_tier_warm_survives_a_racing_release(tmp_path):
         env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0 and out.stdout.strip() == "intact", (
         out.returncode, out.stdout, out.stderr)
+
+
+def test_tier_disk_read_raced_by_a_free_fails_cleanly(tmp_path):
+    """A cold read whose mapping is made while the segment is freed (a
+    task retry superseding it) fails with ``TransportError``, which the
+    serve paths turn into a retryable fetch failure.
+    ``MappedFile.ensure_mapped`` returned None when ``free()`` landed
+    between its mapping and its read of the mapped array, and the read
+    escaped as a ``TypeError``."""
+    from sparkrdma_tpu_torch.memory.arena import ArenaManager
+    from sparkrdma_tpu_torch.memory.mapped_file import MappedFile
+    from sparkrdma_tpu_torch.memory.tier import TieredBlockStore
+    from sparkrdma_tpu_torch.transport import TransportError
+
+    store = TieredBlockStore(hot_bytes=1 << 20)
+    arena = ArenaManager()
+    mf = MappedFile(bytes(range(256)) * 256, directory=str(tmp_path),
+                    direct_write=False, defer_map=True)
+    seg = store.adopt(mf, [(i * 8192, 8192) for i in range(8)],
+                      8 * 8192, 0, arena)
+    entry = store._by_mkey[seg.mkey]
+    real_map = mf._map
+
+    def map_then_freed(length):
+        real_map(length)
+        mf.free()
+
+    mf._map = map_then_freed
+    with pytest.raises(TransportError, match="freed"):
+        store._disk_read(entry, 8192, 8192)
+    assert not os.listdir(tmp_path)

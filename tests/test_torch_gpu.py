@@ -879,3 +879,48 @@ def test_push_skew_tier_on_card(cuda_device, tmp_path):
     ref, ref_moved = _push_skew_tier("cpu", False, tmp_path)
     assert got == ref
     assert ref_moved["staging_h2d_bytes_total"] == 0
+
+
+# a driver at 65307 and executors at 65407, 65447: above the kernel's
+# ephemeral range, clear of chip_smoke.py's network_plane listeners
+GPU_CLUSTER_PORT = 65307
+
+
+@pytest.mark.gpu
+@pytest.mark.cluster
+def test_process_cluster_on_card(cuda_device, tmp_path):
+    """Two executor processes spawned on card 0 after this process has
+    a CUDA context of its own: each selects the card before touching
+    CUDA, writes a TeraSort map over real sockets, and every reduce
+    partition's digest equals the parent-side recomputation."""
+    from sparkrdma_tpu_torch.shuffle.partitioner import HashPartitioner
+    from sparkrdma_tpu_torch.transport.simfleet import (
+        ProcessCluster,
+        _gen_records,
+        records_digest,
+    )
+
+    torch.zeros(1, device=cuda_device)  # the parent's context first
+    gen = {"kind": "terasort", "records": 20_000, "value_len": 90}
+    cluster = ProcessCluster(2, GPU_CLUSTER_PORT, device="cuda:0",
+                             workdir=str(tmp_path / "cluster"))
+    try:
+        assert cluster.driver.node.address[1] == GPU_CLUSTER_PORT
+        assert [ex.info["address"][1] for ex in cluster.executors] == [
+            GPU_CLUSTER_PORT + 100, GPU_CLUSTER_PORT + 140]
+        assert [(ex.info["device"], ex.info["cuda_current"])
+                for ex in cluster.executors] == [("cuda:0", 0)] * 2
+        cluster.register(3, num_maps=2, partitioner=("hash", 4))
+        for m in range(2):
+            cluster.call(m, "write", shuffle_id=3, map_id=m, gen=gen)
+        cluster.wait_published(3, 2)
+        part = HashPartitioner(4)
+        by_part = {p: [] for p in range(4)}
+        for m in range(2):
+            for k, v in _gen_records(gen, m):
+                by_part[part.partition(k)].append((k, v))
+        for p in range(4):
+            out = cluster.read(p % 2, 3, p, p + 1, digest=True)
+            assert out["digest"] == records_digest(by_part[p]), p
+    finally:
+        cluster.stop()
