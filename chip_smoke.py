@@ -6,9 +6,8 @@
 Builds the hand-written kernels of ``sparkrdma_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card,
 drives the port's main paths at full size through their user entry
-points (TeraSort 8 B and 100 B records, the port's bench
-``sparkrdma_tpu_torch.bench`` and compile entry ``entry()``, the
-two-phase block sort engine, WordCount and aggregateByKey over Zipf
+points (TeraSort 8 B and 100 B records, the port's compile entry
+``entry()``, the two-phase block sort engine, WordCount and aggregateByKey over Zipf
 keys, the SQL-exchange models: hash and broadcast joins, the TPC-DS
 q64/q72-shaped pipeline with and without the fused join+aggregate,
 grouped top-k, hash partitioning and the external sort, the rank-local
@@ -739,26 +738,6 @@ def phase_terasort_wide(torch, ts, gen, dev):
     phase("terasort_wide", n=WIDE_N, record_bytes=rec, capacity=cap,
           total_gb=WIDE_N * rec / 1e9, ms=ms,
           gb_per_s=WIDE_N * rec / ms / 1e6, correct=True)
-
-
-def phase_bench(torch):
-    """``python -m sparkrdma_tpu_torch.bench``'s function once on this
-    card (8 B records at 2^24, then HiBench 100 B records at 2^22): its
-    ``#`` line and its JSON line are printed here as earlier lines."""
-    from sparkrdma_tpu_torch import bench
-
-    t0 = time.monotonic()
-    comment, record = bench.run(device="cuda")
-    secs = time.monotonic() - t0
-    require(set(record) == {"metric", "value", "unit", "vs_baseline"}
-            and record["unit"] == "GB/s/chip"
-            and math.isfinite(record["value"]) and record["value"] > 0
-            and record["vs_baseline"] == record["value"]
-            / bench.BASELINE_GBPS, f"bench line breaks its contract: {record}")
-    print(comment, flush=True)
-    print(json.dumps(record), flush=True)
-    phase("bench", seconds=secs, gb_per_s_per_card=record["value"],
-          vs_baseline=record["vs_baseline"], correct=True)
 
 
 def phase_entry(torch):
@@ -3706,8 +3685,6 @@ def main(argv=None) -> int:
         keys, vals = phase_terasort(torch, ts, gen, dev)
         torch.cuda.empty_cache()
         phase_terasort_wide(torch, ts, gen, dev)
-        torch.cuda.empty_cache()
-        phase_bench(torch)
         torch.cuda.empty_cache()
         phase_entry(torch)
         sort_k["launches"] = phase_sort_engine(torch, sk_mod, _build,

@@ -16,8 +16,7 @@ one process per GPU (``group=``): each rank passes its own shard (the
 external sort: its own chunk stream) and gets what it owns after the
 exchange.  Sequence-parallel attention (ring and Ulysses) runs on an
 exchange group of any size, over the blockwise flash-attention kernel.
-``python -m sparkrdma_tpu_torch.bench`` is the TeraSort benchmark, and
-``sparkrdma_tpu_torch.entry.entry()`` the one-step compile entry.
+``sparkrdma_tpu_torch.entry.entry()`` is the one-step compile entry.
 
 The record-level shuffle (``api.py``: :class:`TpuShuffleContext` and its
 ``Dataset``; ``shuffle/``: the manager, writer, resolver and reader over

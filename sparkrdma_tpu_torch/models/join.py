@@ -33,6 +33,11 @@ and float16/bfloat16/float32/float64 values; integer or bool keys);
 other dtypes raise.  The JAX package's ``check_no_silent_truncation`` has no
 counterpart (``models/_base.py``).
 
+A step's stages run inside the ranges ``join.pack`` (the packed
+stream) and ``join.probe`` (the sort, its gathers, the fill and the
+masks), and at D > 1 ``join.buckets`` (the hash buckets) and the
+group's ``exchange.all_to_all`` (``utils/trace.py``).
+
 Output rows are the probe layout with a found mask (1 only on matched
 fact rows); the host wrappers drop the rest per join variant.
 """
@@ -52,6 +57,7 @@ from sparkrdma_tpu_torch.ops.partition import (
 )
 from sparkrdma_tpu_torch.ops.scan_kernels import scan_flagged
 from sparkrdma_tpu_torch.parallel.group import step_group
+from sparkrdma_tpu_torch.utils.trace import stage
 
 # role column: dimension rows sort before fact rows of the same key;
 # invalid (padding) rows sort last and never match
@@ -158,9 +164,11 @@ def _exchange_packed(ku, role, pay, group, capacity: int):
     invalid, 0).  Returns the received (key, role, payload) stream and
     the largest true bucket fill."""
     D = group.size
-    (bk, br, bp), counts = partition_to_buckets_dropping(
-        hash_partition_ids(ku, D), role != _ROLE_INVALID, (ku, role, pay),
-        D, capacity, fill_values=(0, _ROLE_INVALID, 0))
+    with stage("join.buckets"):
+        (bk, br, bp), counts = partition_to_buckets_dropping(
+            hash_partition_ids(ku, D), role != _ROLE_INVALID,
+            (ku, role, pay), D, capacity,
+            fill_values=(0, _ROLE_INVALID, 0))
     eku, erole, epay = (group.all_to_all(b).reshape(-1)
                         for b in (bk, br, bp))
     return eku, erole, epay, counts.max().reshape(1)
@@ -179,13 +187,15 @@ def make_hash_join_step(n_devices: int, n_left: int, n_right: int,
 
     def step(lk, lv, l_valid, rk, rv, r_valid):
         _check_rows("hash join", n_left, n_right, lk, rk)
-        ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
+        with stage("join.pack"):
+            ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
         if g is None:
             fill = torch.zeros(1, dtype=torch.int32, device=ku.device)
         else:
             ku, role, pay, fill = _exchange_packed(ku, role, pay, g,
                                                    capacity)
-        return (*_probe_packed(ku, role, pay), fill)
+        with stage("join.probe"):
+            return (*_probe_packed(ku, role, pay), fill)
 
     return step
 
@@ -201,7 +211,10 @@ def make_broadcast_join_step(n_devices: int, n_left: int, n_right_total: int,
 
     def step(lk, lv, l_valid, rk, rv, r_valid):
         _check_rows("broadcast join", n_left, n_right_total, lk, rk)
-        return _probe_packed(*_pack_sides(lk, lv, l_valid, rk, rv, r_valid))
+        with stage("join.pack"):
+            packed = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
+        with stage("join.probe"):
+            return _probe_packed(*packed)
 
     return step
 

@@ -12,6 +12,12 @@ one sort serves both stages:
   -> per-run sum/count from two prefix sums and run-end differences
   -> per-run min/max by segmented scans (kernel 1's min and max kinds)
 
+The three parts run inside the ranges ``join_aggregate.pack`` (the
+packed stream and the group key), ``join_aggregate.probe`` (the sort,
+its gathers, the fill and the value hook) and
+``join_aggregate.aggregate`` (the run sums, counts, mins and maxs)
+(``utils/trace.py``).
+
 Outputs use the run-end layout of ``aggregate_by_key_local`` (entries
 where ``counts > 0``).
 
@@ -48,6 +54,7 @@ from sparkrdma_tpu_torch.ops.segment import (
     segmented_scan,
 )
 from sparkrdma_tpu_torch.parallel.group import ExchangeGroup, step_group
+from sparkrdma_tpu_torch.utils.trace import stage
 
 GroupKeyFn = Callable[[torch.Tensor], torch.Tensor]
 AggValFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -109,38 +116,48 @@ def make_broadcast_join_aggregate_step(
 
     def step(lk, lv, l_valid, rk, rv, r_valid):
         _check_rows("broadcast join+aggregate", n_left, n_right_total, lk, rk)
-        ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
-        gk = group_key_fn(_hook_view(ku)).to(ku.dtype)
-        # invalid rows ride the all-ones (unsigned max) group, so they
-        # sort to the tail and never delimit or join a real group
-        gk = torch.where(role != _ROLE_INVALID, gk, -1)
-        perm = perm_by_group_key_role(gk, ku, role)
-        sgk, sk, srole, spay = gk[perm], ku[perm], role[perm], pay[perm]
-        dim_val, found = _probe_fill(sk, srole, spay)
-        if agg_val_fn is None:
-            v = dim_val
-        else:
-            v = agg_val_fn(_hook_view(sk), _hook_view(spay),
-                           _hook_view(dim_val))
-        id_min, id_max = _minmax_identities(v.dtype)
-        is_last, heads = _run_bounds(sgk)
-        csum_v = cumsum_1d(torch.where(found, v, 0))
-        csum_m = cumsum_1d(found.to(torch.int32))
-        flag, (fv, fm) = _ff_run_carry(is_last, (csum_v, csum_m))
-        prev_v, prev_m = _prev_end(flag, (fv, fm))
-        counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
-        # the invalid tail never counts: found is 0 there
-        real = counts > 0
-        sums = torch.where(real, csum_v - prev_v, 0).to(v.dtype)
-        mins = segmented_scan(torch.where(found, v, id_min), heads, "min")
-        maxs = segmented_scan(torch.where(found, v, id_max), heads, "max")
-        mins = torch.where(real, mins, 0).to(v.dtype)
-        maxs = torch.where(real, maxs, 0).to(v.dtype)
-        out_gk = torch.where(real, sgk, -1)
-        n_groups = real.sum(dtype=torch.int32).reshape(1)
-        return out_gk, sums, counts, mins, maxs, n_groups
+        with stage("join_aggregate.pack"):
+            ku, role, pay = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
+            gk = group_key_fn(_hook_view(ku)).to(ku.dtype)
+            # invalid rows ride the all-ones (unsigned max) group, so
+            # they sort to the tail and never delimit or join a real
+            # group
+            gk = torch.where(role != _ROLE_INVALID, gk, -1)
+        with stage("join_aggregate.probe"):
+            perm = perm_by_group_key_role(gk, ku, role)
+            sgk, sk, srole, spay = gk[perm], ku[perm], role[perm], pay[perm]
+            dim_val, found = _probe_fill(sk, srole, spay)
+            if agg_val_fn is None:
+                v = dim_val
+            else:
+                v = agg_val_fn(_hook_view(sk), _hook_view(spay),
+                               _hook_view(dim_val))
+        with stage("join_aggregate.aggregate"):
+            return _aggregate_runs(sgk, v, found)
 
     return step
+
+
+def _aggregate_runs(sgk, v, found):
+    """Run-end (gk, sums, counts, mins, maxs, n_groups[1]) of the
+    matched values ``v`` over the group-key runs of ``sgk``."""
+    id_min, id_max = _minmax_identities(v.dtype)
+    is_last, heads = _run_bounds(sgk)
+    csum_v = cumsum_1d(torch.where(found, v, 0))
+    csum_m = cumsum_1d(found.to(torch.int32))
+    flag, (fv, fm) = _ff_run_carry(is_last, (csum_v, csum_m))
+    prev_v, prev_m = _prev_end(flag, (fv, fm))
+    counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
+    # the invalid tail never counts: found is 0 there
+    real = counts > 0
+    sums = torch.where(real, csum_v - prev_v, 0).to(v.dtype)
+    mins = segmented_scan(torch.where(found, v, id_min), heads, "min")
+    maxs = segmented_scan(torch.where(found, v, id_max), heads, "max")
+    mins = torch.where(real, mins, 0).to(v.dtype)
+    maxs = torch.where(real, maxs, 0).to(v.dtype)
+    out_gk = torch.where(real, sgk, -1)
+    n_groups = real.sum(dtype=torch.int32).reshape(1)
+    return out_gk, sums, counts, mins, maxs, n_groups
 
 
 class BroadcastJoinAggregator(ExchangeModel):

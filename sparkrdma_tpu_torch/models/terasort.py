@@ -25,6 +25,13 @@ contract: a run of length ``capacity`` (``D * capacity`` at D > 1)
 padded with the key dtype's max, ``n_valid``, and ``max_fill`` for the
 overflow retry.
 
+Each stage of a step runs inside its range (``utils/trace.py``):
+``terasort.local_sort`` (the sort and the payload gather; at D > 1
+:func:`sort_and_sample`), ``terasort.pad`` (the padding to capacity at
+D = 1), and at D > 1 ``terasort.splitters`` (the sample's all_gather
+and the splitters), ``terasort.fill_windows`` and ``terasort.merge``;
+the all_to_alls run in the group's ``exchange.all_to_all``.
+
 Validity is a 0/1 column ordered as a secondary sort key, so padding
 sorts after every real record of the same key: real keys equal to the
 dtype max are not confused with padding.  ``lax.sort`` with
@@ -50,6 +57,7 @@ from sparkrdma_tpu_torch.models._base import (
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid
 from sparkrdma_tpu_torch.ops.partition import make_range_splitters
 from sparkrdma_tpu_torch.parallel.group import step_group
+from sparkrdma_tpu_torch.utils.trace import stage
 
 
 def _pad_rows(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
@@ -139,14 +147,19 @@ def merge_received(rk, rv, rvalid):
 def _exchange_step(keys, vals, valid, group, capacity: int,
                    sample_size: int):
     """One rank's step at D > 1 (module docstring)."""
-    k, v, n_real, sample = sort_and_sample(keys, vals, valid, sample_size)
-    splitters = make_range_splitters(group.all_gather(sample).reshape(-1),
-                                     group.size)
-    bk, bv, valid_counts, counts = fill_windows(k, v, n_real, splitters,
-                                                capacity)
+    with stage("terasort.local_sort"):
+        k, v, n_real, sample = sort_and_sample(keys, vals, valid,
+                                               sample_size)
+    with stage("terasort.splitters"):
+        splitters = make_range_splitters(
+            group.all_gather(sample).reshape(-1), group.size)
+    with stage("terasort.fill_windows"):
+        bk, bv, valid_counts, counts = fill_windows(k, v, n_real, splitters,
+                                                    capacity)
     rk, rv = group.all_to_all(bk), group.all_to_all(bv)
     rvalid = group.all_to_all(valid_counts.reshape(-1, 1)).reshape(-1)
-    sk, sv, n_valid = merge_received(rk, rv, rvalid)
+    with stage("terasort.merge"):
+        sk, sv, n_valid = merge_received(rk, rv, rvalid)
     return sk, sv, n_valid, counts.max().reshape(1)
 
 
@@ -160,19 +173,21 @@ def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int,
         return _exchange_step(keys, vals, valid, g, capacity, sample_size)
     n_local = keys.shape[0]
     sentinel = torch.iinfo(keys.dtype).max
-    if valid is None:
-        k, perm = torch.sort(keys, stable=True)
-        v = vals[perm]
-        n_real = torch.full((1,), n_local, dtype=torch.int32,
-                            device=keys.device)
-    else:
-        inv = 1 - valid.to(torch.int32)
-        keys = torch.where(valid > 0, keys, sentinel)
-        perm = perm_by_key_invalid(keys, inv)
-        k, v = keys[perm], vals[perm]
-        n_real = valid.sum(dtype=torch.int32).reshape(1)
-    k = _pad_rows(k, capacity, sentinel)
-    v = _pad_rows(v, capacity, 0)
+    with stage("terasort.local_sort"):
+        if valid is None:
+            k, perm = torch.sort(keys, stable=True)
+            v = vals[perm]
+            n_real = torch.full((1,), n_local, dtype=torch.int32,
+                                device=keys.device)
+        else:
+            inv = 1 - valid.to(torch.int32)
+            keys = torch.where(valid > 0, keys, sentinel)
+            perm = perm_by_key_invalid(keys, inv)
+            k, v = keys[perm], vals[perm]
+            n_real = valid.sum(dtype=torch.int32).reshape(1)
+    with stage("terasort.pad"):
+        k = _pad_rows(k, capacity, sentinel)
+        v = _pad_rows(v, capacity, 0)
     n_valid = torch.clamp(n_real, max=capacity)
     max_fill = torch.full((1,), n_local, dtype=torch.int32, device=k.device)
     return k, v, n_valid, max_fill
@@ -189,10 +204,12 @@ def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int,
         return _exchange_step(keys, payload, None, g, capacity, sample_size)
     n_local = keys.shape[0]
     sentinel = torch.iinfo(keys.dtype).max
-    k, perm = torch.sort(keys, stable=True)
-    p = payload.index_select(0, perm)
-    k = _pad_rows(k, capacity, sentinel)
-    p = _pad_rows(p, capacity, 0)
+    with stage("terasort.local_sort"):
+        k, perm = torch.sort(keys, stable=True)
+        p = payload.index_select(0, perm)
+    with stage("terasort.pad"):
+        k = _pad_rows(k, capacity, sentinel)
+        p = _pad_rows(p, capacity, 0)
     n_valid = torch.full((1,), min(n_local, capacity), dtype=torch.int32,
                          device=k.device)
     max_fill = torch.full((1,), n_local, dtype=torch.int32, device=k.device)

@@ -24,6 +24,14 @@ The collectives of the shuffle, each the identity at size 1:
 - :meth:`ExchangeGroup.agree_max`, an integer all-reduce max on the
   host: how the ranks agree on shapes and on an overflow retry before
   the next collective, where the JAX host saw every device at once.
+
+At size > 1, ``all_to_all`` and ``all_gather`` each run inside the
+stage range ``exchange.all_to_all`` / ``exchange.all_gather``
+(``utils/trace.py``: the copy to a contiguous input and the output
+allocation included) and add the bytes this rank sends to other ranks
+to the registry's ``exchange_bytes_total{op=}``: ``(D - 1) / D`` of an
+``all_to_all``'s ``[D, ...]`` block, ``D - 1`` times an
+``all_gather``'s input.
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from sparkrdma_tpu_torch.metrics import counter
 from sparkrdma_tpu_torch.parallel.device import (
     DeviceLike,
     one_process_per_gpu,
     resolve_device,
 )
+from sparkrdma_tpu_torch.utils.trace import stage
 
 
 # all_gather_into_tensor, under the name newer releases give it
@@ -72,9 +82,12 @@ class ExchangeGroup:
         if x.shape[0] != self.size:
             raise ValueError(
                 f"all_to_all takes [{self.size}, ...], got {tuple(x.shape)}")
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
+        counter("exchange_bytes_total", op="all_to_all").inc(
+            x.nbytes // self.size * (self.size - 1))
+        with stage("exchange.all_to_all"):
+            x = x.contiguous()
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=self.group)
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,8 +95,11 @@ class ExchangeGroup:
         (``all_gather_into_tensor``)."""
         if self.size == 1:
             return x[None]
-        out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
-        _all_gather_single(out, x.contiguous(), group=self.group)
+        counter("exchange_bytes_total", op="all_gather").inc(
+            x.nbytes * (self.size - 1))
+        with stage("exchange.all_gather"):
+            out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
+            _all_gather_single(out, x.contiguous(), group=self.group)
         return out.view(self.size, *x.shape)
 
     def agree_max(self, *values: int) -> List[int]:

@@ -7,7 +7,21 @@ promotes that to a proper subsystem: nested spans collected per thread,
 dumpable as a ``chrome://tracing`` / Perfetto JSON file, enabled by conf
 (``spark.shuffle.tpu.trace``) or programmatically.
 
-Zero overhead when disabled: ``span()`` returns a no-op context.
+Spans share one path with the torch profiler.  :func:`stage` marks a
+stage of a device step (``terasort.pad``, ``join.probe``, ...) and
+:meth:`Tracer.span` a host operation; either opens
+``torch.profiler.record_function("sparkrdma." + name)`` while a torch
+profiler records, so the kernels a stage launches fall under its range
+in the profiler's trace, and records a host span while the tracer is
+enabled.  With neither on, both return one shared no-op context after
+a read of two flags (the profiler's and the tracer's).
+
+The tracer stamps its events on the profiler's clock: ``ts`` is
+microseconds of ``time.time_ns()`` since the tracer's
+``base_ns``, which :meth:`Tracer.dump` writes as the document's
+``baseTimeNanoseconds``, the field a torch profiler's Chrome trace
+gives its own zero.  A dump and a profiler trace of one run line up
+once each event's ``ts`` is shifted by the difference of the two bases.
 """
 
 from __future__ import annotations
@@ -16,7 +30,52 @@ import contextlib
 import json
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+#: the prefix of every profiler range the port opens
+RANGE_PREFIX = "sparkrdma."
+_NULL = contextlib.nullcontext()
+
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def profiling() -> bool:
+        """Whether a torch profiler is recording (one flag read)."""
+        return _autograd_profiler._is_profiler_enabled
+else:  # releases without the module flag
+    profiling = torch._C._autograd._profiler_enabled
+
+
+class _Span:
+    """One open span: the profiler range while the profiler records,
+    the tracer's host span while ``tracer`` is given."""
+
+    __slots__ = ("name", "tracer", "args", "rf", "ts")
+
+    def __init__(self, name: str, tracer: Optional["Tracer"], args,
+                 profiled: bool):
+        self.name, self.tracer, self.args = name, tracer, args
+        self.rf = torch.profiler.record_function(RANGE_PREFIX + name) \
+            if profiled else None
+
+    def __enter__(self):
+        if self.tracer is not None:
+            self.ts = self.tracer._now_us()
+        if self.rf is not None:
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        if self.tracer is not None:
+            self.tracer._append({
+                "name": self.name, "ph": "X", "ts": self.ts,
+                "dur": self.tracer._now_us() - self.ts,
+                "pid": 0, "tid": threading.get_ident() % 100000,
+                "args": self.args or {},
+            })
 
 
 class Tracer:
@@ -28,7 +87,7 @@ class Tracer:
         self.dropped = 0
         self._events: List[Dict] = []
         self._lock = threading.Lock()  # lock-order: 92
-        self._t0 = time.perf_counter()
+        self.base_ns = time.time_ns()
 
     def _append(self, event: Dict) -> None:
         """Bounded append: beyond max_events new events are counted but
@@ -51,23 +110,16 @@ class Tracer:
             counter("trace_dropped_total").inc()
 
     def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        return (time.time_ns() - self.base_ns) / 1e3
 
-    @contextlib.contextmanager
     def span(self, name: str, **args):
-        if not self.enabled:
-            yield
-            return
-        ts = self._now_us()
-        try:
-            yield
-        finally:
-            dur = self._now_us() - ts
-            self._append({
-                "name": name, "ph": "X", "ts": ts, "dur": dur,
-                "pid": 0, "tid": threading.get_ident() % 100000,
-                "args": args or {},
-            })
+        """A host span named ``name`` while the tracer is enabled, and
+        the range ``sparkrdma.<name>`` while a torch profiler records
+        (module docstring); otherwise a shared no-op context."""
+        profiled = profiling()
+        if not (self.enabled or profiled):
+            return _NULL
+        return _Span(name, self if self.enabled else None, args, profiled)
 
     def instant(self, name: str, **args) -> None:
         if not self.enabled:
@@ -97,6 +149,7 @@ class Tracer:
             events = list(self._events)
         doc = {
             "traceEvents": events,
+            "baseTimeNanoseconds": self.base_ns,
             "metadata": {
                 "process_name": self.process_name,
                 "dropped_events": self.dropped,
@@ -116,3 +169,10 @@ GLOBAL_TRACER = Tracer(enabled=False)
 
 def get_tracer() -> Tracer:
     return GLOBAL_TRACER
+
+
+def stage(name: str):
+    """A stage of a device step, ``with stage("terasort.pad"): ...``:
+    the global tracer's :meth:`Tracer.span`, so a shared no-op context
+    unless a torch profiler records or the tracer is enabled."""
+    return GLOBAL_TRACER.span(name)

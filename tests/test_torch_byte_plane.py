@@ -230,11 +230,20 @@ def _check_rows(got_ranks, want, name, D, guarded=True):
         assert got["stats"] == want["stats"], (name, D, rank)
 
 
+# the bytes the port's exchange group sends to other ranks
+# (``parallel/group.py``), which the JAX controller has no group to count
+PORT_ONLY = ("exchange_bytes_total",)
+
+
 def _summed_counters(got_ranks, name):
+    """The counters summed over the ranks, but for :data:`PORT_ONLY`,
+    which counts bytes exactly when the world has more than one rank."""
     total = {}
     for r in got_ranks:
         for k, v in r[name]["counters"].items():
             total[k] = total.get(k, 0) + v
+    off_rank = sum(total.pop(k, 0) for k in PORT_ONLY)
+    assert (off_rank > 0) == (len(got_ranks) > 1), (name, off_rank)
     return total
 
 
