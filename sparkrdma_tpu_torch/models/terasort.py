@@ -25,12 +25,18 @@ contract: a run of length ``capacity`` (``D * capacity`` at D > 1)
 padded with the key dtype's max, ``n_valid``, and ``max_fill`` for the
 overflow retry.
 
+At D = 1 the step allocates its outputs at ``capacity`` rows first; the
+sort and the payload gather write straight into their first
+``min(n, capacity)`` rows, and only the tail is filled after them, so
+no sorted row is copied a second time.
+
 Each stage of a step runs inside its range (``utils/trace.py``):
 ``terasort.local_sort`` (the sort and the payload gather; at D > 1
-:func:`sort_and_sample`), ``terasort.pad`` (the padding to capacity at
-D = 1), and at D > 1 ``terasort.splitters`` (the sample's all_gather
-and the splitters), ``terasort.fill_windows`` and ``terasort.merge``;
-the all_to_alls run in the group's ``exchange.all_to_all``.
+:func:`sort_and_sample`), ``terasort.pad`` (at D = 1 the fill of the
+outputs' tail past the sorted rows), and at D > 1
+``terasort.splitters`` (the sample's all_gather and the splitters),
+``terasort.fill_windows`` and ``terasort.merge``; the all_to_alls run
+in the group's ``exchange.all_to_all``.
 
 Validity is a 0/1 column ordered as a secondary sort key, so padding
 sorts after every real record of the same key: real keys equal to the
@@ -60,16 +66,19 @@ from sparkrdma_tpu_torch.parallel.group import step_group
 from sparkrdma_tpu_torch.utils.trace import stage
 
 
-def _pad_rows(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
-    """Trim or pad the leading dimension to ``capacity``."""
-    pad = capacity - x.shape[0]
-    if pad < 0:
-        return x[:capacity]
-    if pad == 0:
-        return x
-    tail = torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype,
-                      device=x.device)
-    return torch.cat([x, tail])
+def _sort_into(keys: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Stable sort of ``keys`` whose first ``out.shape[0]`` sorted keys
+    land in ``out``; returns the whole permutation.  With every key
+    kept the sort writes into ``out`` itself; past capacity (``out``
+    shorter than ``keys``) the sorted run is trimmed into it."""
+    n = keys.shape[0]
+    if out.shape[0] == n:
+        perm = torch.empty(n, dtype=torch.int64, device=keys.device)
+        torch.sort(keys, stable=True, out=(out, perm))
+        return perm
+    k, perm = torch.sort(keys, stable=True)
+    out.copy_(k[:out.shape[0]])
+    return perm
 
 
 def sort_and_sample(keys, vals, valid, sample_size: int):
@@ -166,28 +175,33 @@ def _exchange_step(keys, vals, valid, group, capacity: int,
 def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int,
                      sample_size: int = 1024, group=None):
     """One rank's sort.  ``valid`` is int32 0/1 or None (everything
-    valid, no validity operand).  Returns (keys' [D * capacity], vals',
+    valid, no validity operand).  At D = 1 the sort and the gathers
+    write into the capacity-sized outputs and ``terasort.pad`` fills
+    their tail (module docstring).  Returns (keys' [D * capacity], vals',
     n_valid int32[1], max_fill int32[1])."""
     g = step_group(n_devices, group, "TeraSort")
     if g is not None:
         return _exchange_step(keys, vals, valid, g, capacity, sample_size)
     n_local = keys.shape[0]
+    m = min(n_local, capacity)
     sentinel = torch.iinfo(keys.dtype).max
     with stage("terasort.local_sort"):
+        k = keys.new_empty(capacity)
+        v = vals.new_empty((capacity, *vals.shape[1:]))
         if valid is None:
-            k, perm = torch.sort(keys, stable=True)
-            v = vals[perm]
+            perm = _sort_into(keys, k[:m])
             n_real = torch.full((1,), n_local, dtype=torch.int32,
                                 device=keys.device)
         else:
             inv = 1 - valid.to(torch.int32)
             keys = torch.where(valid > 0, keys, sentinel)
             perm = perm_by_key_invalid(keys, inv)
-            k, v = keys[perm], vals[perm]
+            torch.index_select(keys, 0, perm[:m], out=k[:m])
             n_real = valid.sum(dtype=torch.int32).reshape(1)
+        torch.index_select(vals, 0, perm[:m], out=v[:m])
     with stage("terasort.pad"):
-        k = _pad_rows(k, capacity, sentinel)
-        v = _pad_rows(v, capacity, 0)
+        k[m:].fill_(sentinel)
+        v[m:].zero_()
     n_valid = torch.clamp(n_real, max=capacity)
     max_fill = torch.full((1,), n_local, dtype=torch.int32, device=k.device)
     return k, v, n_valid, max_fill
@@ -197,21 +211,24 @@ def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int,
                           sample_size: int = 1024, group=None):
     """Wide-record variant (the HiBench TeraSort shape): the key sort
     carries a row index, and the payload rows [n, W] follow by row
-    gathers.  Returns (keys' [D * capacity], payload' [D * capacity, W],
-    n_valid int32[1], max_fill int32[1])."""
+    gathers, at D = 1 straight into the capacity-sized outputs.  Returns
+    (keys' [D * capacity], payload' [D * capacity, W], n_valid int32[1],
+    max_fill int32[1])."""
     g = step_group(n_devices, group, "TeraSort")
     if g is not None:
         return _exchange_step(keys, payload, None, g, capacity, sample_size)
     n_local = keys.shape[0]
+    m = min(n_local, capacity)
     sentinel = torch.iinfo(keys.dtype).max
     with stage("terasort.local_sort"):
-        k, perm = torch.sort(keys, stable=True)
-        p = payload.index_select(0, perm)
+        k = keys.new_empty(capacity)
+        p = payload.new_empty((capacity, payload.shape[1]))
+        perm = _sort_into(keys, k[:m])
+        torch.index_select(payload, 0, perm[:m], out=p[:m])
     with stage("terasort.pad"):
-        k = _pad_rows(k, capacity, sentinel)
-        p = _pad_rows(p, capacity, 0)
-    n_valid = torch.full((1,), min(n_local, capacity), dtype=torch.int32,
-                         device=k.device)
+        k[m:].fill_(sentinel)
+        p[m:].zero_()
+    n_valid = torch.full((1,), m, dtype=torch.int32, device=k.device)
     max_fill = torch.full((1,), n_local, dtype=torch.int32, device=k.device)
     return k, p, n_valid, max_fill
 

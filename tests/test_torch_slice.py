@@ -35,6 +35,10 @@ from sparkrdma_tpu_torch import (
 )
 from sparkrdma_tpu_torch import interop
 from sparkrdma_tpu_torch.models._base import quantize_padded_length
+from sparkrdma_tpu_torch.models.terasort import (
+    make_sort_step,
+    make_wide_sort_step,
+)
 from sparkrdma_tpu_torch.ops import segment as tseg
 from sparkrdma_tpu_torch.parallel import select_devices
 
@@ -178,6 +182,67 @@ def test_terasort_sort_device_wide_matches_jax(mesh1, capacity):
     for g, w in zip(_canon_rows(gk.numpy()[:nv], gp.numpy()[:nv]),
                     _canon_rows(np.asarray(wk)[:nv], np.asarray(wp)[:nv])):
         np.testing.assert_array_equal(g, w)
+
+
+def _padded_sort(keys, rows, valid, capacity):
+    """The D = 1 output as a plain stable sort by (key, invalid), a row
+    gather and a ``cat`` of the padding (key-dtype-max keys, zero rows),
+    trimmed to ``capacity``."""
+    n = keys.shape[0]
+    sentinel = torch.iinfo(keys.dtype).max
+    if valid is None:
+        perm = torch.sort(keys, stable=True).indices
+    else:
+        keys = torch.where(valid > 0, keys, sentinel)
+        by_invalid = torch.sort(1 - valid, stable=True).indices
+        perm = by_invalid[torch.sort(keys[by_invalid], stable=True).indices]
+    pad = max(capacity - n, 0)
+    k = torch.cat([keys.index_select(0, perm),
+                   torch.full((pad,), sentinel, dtype=keys.dtype)])
+    r = torch.cat([rows.index_select(0, perm),
+                   rows.new_zeros((pad, *rows.shape[1:]))])
+    return k[:capacity], r[:capacity]
+
+
+@pytest.mark.parametrize("capacity_gap", [37, 0, -37],
+                         ids=["above", "equal", "below"])
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("shape", ["wide", "narrow", "narrow_valid"])
+def test_one_rank_sort_writes_capacity_outputs_bit_exact(shape, key_dtype,
+                                                         capacity_gap):
+    """At D = 1 the sort and the gather write into capacity-sized outputs:
+    every row, padding included, equals the plain sort + gather + cat,
+    and each output's storage holds ``capacity`` rows, no more."""
+    n, W = 600, 23
+    capacity = n + capacity_gap
+    g = torch.Generator().manual_seed(600 + capacity_gap)
+    info = torch.iinfo(key_dtype)
+    keys = torch.randint(-50, 50, (n,), generator=g).to(key_dtype)
+    keys[:3] = info.max  # real keys equal to the padding sentinel
+    keys[3] = info.min
+    valid = None
+    if shape == "wide":
+        rows = torch.randint(-2**31, 2**31 - 1, (n, W), generator=g,
+                             dtype=torch.int32)
+        out = make_wide_sort_step(1, n, W, capacity)(keys, rows)
+    else:
+        rows = torch.randperm(n, generator=g).to(key_dtype)
+        if shape == "narrow_valid":
+            valid = (torch.rand(n, generator=g) < 0.8).to(torch.int32)
+            out = make_sort_step(1, n, capacity)(keys, rows, valid)
+        else:
+            out = make_sort_step(1, n, capacity, with_validity=False)(keys,
+                                                                      rows)
+    k, r, n_valid, max_fill = out
+    want_k, want_r = _padded_sort(keys, rows, valid, capacity)
+    assert k.dtype == key_dtype and r.dtype == rows.dtype
+    assert torch.equal(k, want_k) and torch.equal(r, want_r)
+    n_real = n if valid is None else int(valid.sum())
+    assert n_valid.tolist() == [min(n_real, capacity)]
+    assert max_fill.tolist() == [n]
+    for t in (k, r):
+        assert t.shape[0] == capacity
+        assert t.untyped_storage().nbytes() == t.numel() * t.element_size()
 
 
 @pytest.mark.parametrize("n", [1, 500, 1024, 3001])

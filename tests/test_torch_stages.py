@@ -203,6 +203,19 @@ def test_terasort_at_one_rank_records_its_sort_and_pad(sort):
     assert k.shape == (cap,) and int(n_valid[0]) in (500, 512)
 
 
+@pytest.mark.parametrize("sort", [_wide_sort, _narrow_sort],
+                         ids=["wide", "narrow"])
+def test_terasort_at_one_rank_copies_no_sorted_row(sort):
+    """The sort and the gather write into the capacity-sized outputs, so
+    no ``cat`` copies the sorted run; ``terasort.pad`` fills the tail."""
+    (k, _n_valid, cap), doc = _profiled(sort)
+    ops = [e["name"] for e in doc["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    assert "aten::sort" in ops and "aten::cat" not in ops
+    assert _names(doc) == ["terasort.local_sort", "terasort.pad"]
+    assert k.untyped_storage().nbytes() == cap * k.element_size()
+
+
 def test_broadcast_join_records_pack_and_probe():
     cols = [torch.tensor([3, 1, 4, 1, 5], dtype=torch.int32),
             torch.arange(5, dtype=torch.int32),
