@@ -1,0 +1,11 @@
+"""keyed_scan_roofline: the least time of a keyed-reduction step's scans
+(the reduction's cumsums and fill, the compactions' cumsums, the join's
+probe fill: ``scan_bytes_per_step`` of the driver's ``info``, over the
+published HBM rate) as a share of kernel 1's device time a step, in %;
+read as ``scan_roofline`` reads query 55's."""
+
+from shufflebench import common
+
+
+def read(run):
+    return common.module("metrics", "scan_roofline").read(run)

@@ -19,6 +19,7 @@ from sparkrdma_tpu_torch.ops.scan_kernels import (
 )
 from sparkrdma_tpu_torch.ops.segment import (
     aggregate_by_key_local,
+    compact_flagged,
     reduce_by_key_local,
     segmented_scan,
 )
@@ -40,6 +41,7 @@ __all__ = [
     "block_sort_plain",
     "bucket_cap",
     "bucketize_segments",
+    "compact_flagged",
     "cumsum_1d",
     "hash_exchange",
     "hash_partition_ids",

@@ -324,6 +324,42 @@ def test_keyed_rank_stages_match_cpu_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+def test_keyed_q18_scan_wraps_and_compaction_is_exact_on_card(cuda_device):
+    """Kernel 1's ``cumsum_1d`` wraps past 2^31 as the plain version
+    does, and ``compact_flagged`` is bit-exact with ``masked_select``,
+    without a host synchronisation, at capacities above, at and below
+    the count, over many of the kernel's tiles."""
+    n = 3 * 8192 * 64 + 5
+    x = torch.full((n,), 1 << 20, dtype=torch.int32, device=cuda_device)
+    x[::7] = (1 << 31) - 1
+    got = tscan.cumsum_1d(x)
+    want = torch.cumsum(x.cpu().long(), 0)
+    want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).int()
+    assert int(x.long().sum()) > 1 << 31 and torch.equal(got.cpu(), want)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    flag = torch.rand(n, generator=g, device=cuda_device) < 0.01
+    cols = (torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
+                          device=cuda_device, dtype=torch.int32),
+            torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                          device=cuda_device))
+    k = int(flag.sum())
+    for cap in (k + 100, k, k // 3):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs, count = tseg.compact_flagged(flag, cols, cap, (-5, -6))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert int(count[0]) == k
+        kept = min(k, cap)
+        for out, col, fill in zip(outs, cols, (-5, -6)):
+            assert out.dtype == col.dtype and out.shape == (cap,)
+            want = torch.masked_select(col, flag)[:kept]
+            assert torch.equal(out[:kept], want)
+            assert bool((out[kept:] == fill).all())
+
+
+@pytest.mark.gpu
 def test_kernels_count_their_launches(cuda_device):
     _build.reset_launch_counts()
     k = torch.arange(512, dtype=torch.int32, device=cuda_device)
