@@ -19,7 +19,10 @@ x 8192 and x 32768, d_head 128, bfloat16), checks every result against
 an independent torch oracle, and shows through the launch counters
 that the main paths ran the kernels.  Kernel 3 is also held against
 its plain version in float32, bfloat16 and float16 at d_head 32 to 576,
-and timed at d 256 and 512 (bfloat16) and d 128 (float16).  The byte
+and timed at d 256 and 512 (bfloat16) and d 128 (float16).  Kernel 4,
+the merge of sorted runs, is held against its plain version at D = 2,
+3, 4 and 8 and timed at the block a rank of the four-card TeraSort
+receives.  The byte
 data plane (``TileExchange``, ``DeviceArena``) runs at a 1 GiB row and
 256 MiB of tile rounds on one card, its bytes checked and its rates
 set beside the host link's.  The record-level shuffle runs through
@@ -380,7 +383,7 @@ def phase_build(_build):
     require(not st_err, f"staging library build failed: {st_err}")
     for src, name, used, spill in _ptxas_rows(_build.build_log()):
         if src in ("flagged_scan.cu", "bitonic_block_sort.cu",
-                   "block_attention.cu"):
+                   "block_attention.cu", "merge_runs.cu"):
             print(f"# ptxas {src} {name}: {used} | {spill}")
     serial = [ln.strip() for ln in _build.build_log().splitlines()
               if "C7514" in ln or "C7515" in ln or "serializ" in ln]
@@ -678,6 +681,80 @@ def phase_scan(torch, scan, gen, dev):
           bound_ms=fb_ms, bound_by="bytes")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def _merge_block(torch, gen, dev, n_runs, cap, n_valid, dtype):
+    """A received [D, cap] block as the four-card TeraSort delivers it:
+    row s holds ``n_valid[s]`` sorted random keys, then the dtype's
+    max."""
+    info = torch.iinfo(dtype)
+    rk = torch.randint(info.min, info.max, (n_runs, cap), generator=gen,
+                       device=dev, dtype=dtype)
+    rk = torch.sort(rk, dim=1).values
+    rvalid = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    pad = torch.arange(cap, device=dev)[None, :] >= rvalid[:, None].long()
+    return rk.masked_fill_(pad, info.max), rvalid
+
+
+def phase_merge_runs(torch, mk, _build, gen, dev):
+    """Kernel 4 against its plain version, bit for bit: D = 2, 3, 4 and
+    8 over int32 and int64 keys, then timed at the main path's shape,
+    the block a rank of ``terasort.d4`` receives: 4 x 21,810,384 int64
+    slots (the capacity of 2^26 records a card at factor 1.3), 77%
+    real."""
+    for n_runs in (2, 3, 4, 8):
+        for dtype in (torch.int32, torch.int64):
+            cap = (1 << 22) // n_runs + 3
+            n_valid = [cap, 0] + [cap * (s + 1) // (n_runs + 1)
+                                  for s in range(n_runs - 2)]
+            rk, rvalid = _merge_block(torch, gen, dev, n_runs, cap, n_valid,
+                                      dtype)
+            rk[0, : cap // 2] = torch.iinfo(dtype).max  # real max keys
+            rk[0] = torch.sort(rk[0]).values
+            gk, gs = mk.merge_runs(rk, rvalid)
+            wk, ws = mk.merge_runs_plain(rk, rvalid)
+            torch.cuda.synchronize()
+            require(torch.equal(gk, wk) and torch.equal(gs, ws),
+                    f"merge_runs differs (D={n_runs}, {dtype})")
+            phase("merge_runs_check", n_runs=n_runs, cap=cap,
+                  dtype=str(dtype).split(".")[-1], bit_exact=True)
+            del rk, rvalid, gk, gs, wk, ws
+    n_runs, n_local = 4, 1 << 26
+    cap = max(8, -(-math.ceil(n_local / n_runs * 1.3) // 8) * 8)
+    n_valid = [n_local // n_runs] * n_runs
+    rk, rvalid = _merge_block(torch, gen, dev, n_runs, cap, n_valid,
+                              torch.int64)
+    gk, gs = mk.merge_runs(rk, rvalid)
+    wk, ws = mk.merge_runs_plain(rk, rvalid)
+    torch.cuda.synchronize()
+    require(torch.equal(gk, wk) and torch.equal(gs, ws),
+            "merge_runs differs at the main path's shape")
+    del wk, ws
+    # the library's one stable sort of the flat block gives the merge's
+    # order only where no real key equals the dtype's max, as here
+    # (randint excludes it)
+    lk, li = torch.sort(rk.reshape(-1), stable=True)
+    require(torch.equal(lk, gk) and torch.equal(li.to(torch.int32), gs),
+            "torch.sort(stable=True) differs from merge_runs")
+    del gk, gs, lk, li
+    ms = cuda_ms(lambda: mk.merge_runs(rk, rvalid), iters=10)
+    plain = cuda_ms(lambda: mk.merge_runs_plain(rk, rvalid), iters=3)
+    library = cuda_ms(lambda: torch.sort(rk.reshape(-1), stable=True),
+                      iters=3)
+    slots, real = n_runs * cap, sum(n_valid)
+    # each real key read once; every slot's key and int32 src written
+    # once (the padding's keys are known: the dtype's max)
+    b_ms, b_by = bound_ms(real * 8 + slots * 12, 0)
+    profile(torch, "merge_runs", lambda: mk.merge_runs(rk, rvalid))
+    phase("merge_runs_time", n_runs=n_runs, cap=cap, slots=slots,
+          real=real, dtype="int64", ms=ms, plain_ms=plain,
+          library_ms=library, bound_ms=b_ms, bound_by=b_by,
+          rounds=_build.load().sr_merge_runs_rounds(n_runs))
+    del rk, rvalid
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain, library_ms=library,
+                bound_ms=b_ms, bound_by=b_by,
+                library="torch.sort(stable=True) of the flat block: the "
+                        "same order where no real key is the dtype's max")
 
 
 def _check_pairs_sorted(torch, keys, vals, sk, sv, what):
@@ -3057,13 +3134,18 @@ def phase_exchange_stages(torch, ts, part, wc_mod, seg, _build, gen, dev):
     - keyed: 2^26 Zipf(1.1) keys hashed into 8 buckets, then
       ``_premask`` and ``reduce_by_key_local`` (kernel 1).
 
-    Returns kernel 1's launches in the keyed run."""
+    Returns kernel 1's launches in the keyed run and kernel 4's in the
+    two TeraSort merges (one each)."""
     i32 = dict(device=dev, dtype=torch.int32)
     keys = torch.randint(0, 1 << 31, (SORT_N,), generator=gen, **i32)
     vals = torch.randint(0, 1 << 31, (SORT_N,), generator=gen, **i32)
     map_side, merge, cap = _terasort_stages(torch, ts, part, keys, vals)
+    _build.reset_launch_counts()
     sk, sv, n_valid = merge()
     torch.cuda.synchronize()
+    merge_launches = _build.launch_counts()["merge_runs"]
+    require(merge_launches == 1,
+            f"8 B merge_received launched merge_runs {merge_launches}x")
     require(int(n_valid[0]) == SORT_N, "8 B stages lost records")
     _check_pairs_sorted(torch, keys, vals, sk[:SORT_N], sv[:SORT_N],
                         "8 B stages")
@@ -3085,8 +3167,12 @@ def phase_exchange_stages(torch, ts, part, wc_mod, seg, _build, gen, dev):
                             generator=gen, **i32)
     payload[:, 0] = torch.arange(n, **i32)
     map_side, merge, cap = _terasort_stages(torch, ts, part, keys, payload)
+    _build.reset_launch_counts()
     sk, sp, n_valid = merge()
     torch.cuda.synchronize()
+    got = _build.launch_counts()["merge_runs"]
+    require(got == 1, f"100 B merge_received launched merge_runs {got}x")
+    merge_launches += got
     require(int(n_valid[0]) == n, "100 B stages lost records")
     sk, sp = sk[:n], sp[:n]
     require(bool((sk[1:] >= sk[:-1]).all()), "100 B stages: unsorted")
@@ -3149,7 +3235,7 @@ def phase_exchange_stages(torch, ts, part, wc_mod, seg, _build, gen, dev):
           distinct=oracle["keys"].numel(), **res,
           total_ms=res["map_ms"] + res["reduce_ms"], launches=launches,
           correct=True)
-    return launches
+    return launches, merge_launches
 
 
 def _lengths(torch, group, n):
@@ -3660,6 +3746,7 @@ def main(argv=None) -> int:
         from sparkrdma_tpu_torch.models import topk as tkmod
         from sparkrdma_tpu_torch.models import wordcount as wc_mod
         from sparkrdma_tpu_torch.ops import attention as attn
+        from sparkrdma_tpu_torch.ops import merge_kernel as mk
         from sparkrdma_tpu_torch.ops import partition as part
         from sparkrdma_tpu_torch.ops import scan_kernels as scan
         from sparkrdma_tpu_torch.ops import segment as seg
@@ -3682,6 +3769,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         scan_k = phase_scan(torch, scan, gen, dev)
         torch.cuda.empty_cache()
+        merge_k = phase_merge_runs(torch, mk, _build, gen, dev)
+        torch.cuda.empty_cache()
         keys, vals = phase_terasort(torch, ts, gen, dev)
         torch.cuda.empty_cache()
         phase_terasort_wide(torch, ts, gen, dev)
@@ -3703,8 +3792,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_partition(torch, part, gen, dev)
         torch.cuda.empty_cache()
-        scan_k["launches"] += phase_exchange_stages(
+        launches, merge_k["launches"] = phase_exchange_stages(
             torch, ts, part, wc_mod, seg, _build, gen, dev)
+        scan_k["launches"] += launches
         torch.cuda.empty_cache()
         phase_multi_gpu(torch)
         phase_dryrun(torch, _build)
@@ -3751,6 +3841,10 @@ def main(argv=None) -> int:
         dict(name="block_attention", route="cuda",
              source="sparkrdma_tpu_torch/csrc/block_attention.cu",
              replaces="sparkrdma_tpu/ops/attention.py:60", **attn_k),
+        dict(name="merge_runs", route="cuda",
+             source="sparkrdma_tpu_torch/csrc/merge_runs.cu",
+             replaces="none (the JAX package merges with lax.sort)",
+             **merge_k),
     ]
     keys_order = ["name", "route", "source", "replaces", "launches",
                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

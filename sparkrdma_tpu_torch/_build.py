@@ -166,6 +166,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p,
     ]
     lib.sr_block_attention.restype = i
+    lib.sr_merge_runs.argtypes = [p, p, p, p, p, p, i, ll, i, p]
+    lib.sr_merge_runs.restype = i
+    lib.sr_merge_runs_rounds.argtypes = [i]
+    lib.sr_merge_runs_rounds.restype = i
 
 
 def load() -> ctypes.CDLL:

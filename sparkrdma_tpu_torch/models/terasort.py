@@ -12,7 +12,9 @@ sorted arrays: one gather of ``starts[:, None] + arange(capacity)``
 fills the ``[D, capacity]`` send block, with no per-destination loop
 and no read of ``starts`` on the host.  The windows move with three
 ``all_to_all``s (keys, values, per-source valid counts) and the received
-runs are merged by one sort with validity as the second key.  The step
+sorted runs are merged by :func:`~sparkrdma_tpu_torch.ops.merge_kernel.
+merge_runs` (a merge-path kernel on the card), whose source slots gather
+the payload rows once.  The step
 is factored into its rank-local halves, :func:`sort_and_sample` and
 :func:`fill_windows` on the map side and :func:`merge_received` on the
 reduce side, which run on one device as they run in a rank of a group.
@@ -42,7 +44,8 @@ Validity is a 0/1 column ordered as a secondary sort key, so padding
 sorts after every real record of the same key: real keys equal to the
 dtype max are not confused with padding.  ``lax.sort`` with
 ``num_keys=2`` becomes one sort on a packed int64 key for int32 keys,
-or two stable sorts for int64 keys (``ops/lexsort.py``).
+or two stable sorts for int64 keys (``ops/lexsort.py``); the merge
+keeps that order without sorting.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from sparkrdma_tpu_torch.models._base import (
     restore_values,
 )
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid
+from sparkrdma_tpu_torch.ops.merge_kernel import merge_runs
 from sparkrdma_tpu_torch.ops.partition import make_range_splitters
 from sparkrdma_tpu_torch.parallel.group import step_group
 from sparkrdma_tpu_torch.utils.trace import stage
@@ -140,17 +144,19 @@ def fill_windows(k, v, n_real, splitters, capacity: int):
 def merge_received(rk, rv, rvalid):
     """Reduce side: merge the ``[D, cap]`` block the all_to_all
     delivered (row s from rank s, its first ``rvalid[s]`` slots real)
-    by one sort keyed (key, invalid), so padding sorts last even where
-    its key equals a real max-valued key.  ``rv`` is ``[D, cap]`` or
-    ``[D, cap, W]``.  Returns (keys [D*cap], vals [D*cap(, W)],
-    n_valid int32[1])."""
-    n_parts, cap = rk.shape
-    slot = torch.arange(cap, device=rk.device)
-    riv = (slot[None, :] >= rvalid[:, None]).to(torch.int32).reshape(-1)
-    flat_k = rk.reshape(-1)
-    perm = perm_by_key_invalid(flat_k, riv)
-    sv = rv.reshape(n_parts * cap, *rv.shape[2:]).index_select(0, perm)
-    return flat_k[perm], sv, rvalid.sum(dtype=torch.int32).reshape(1)
+    in the order of a stable sort keyed (key, invalid), so padding
+    comes last even where its key equals a real max-valued key, and
+    gather the payload rows once through the merge's source slots.
+    ``rv`` is ``[D, cap]`` or ``[D, cap, W]``.  Returns (keys [D*cap],
+    vals [D*cap(, W)], n_valid int32[1]).
+
+    The merge relies on two facts about the block, which
+    :func:`sort_and_sample` and :func:`fill_windows` guarantee: each
+    row's valid prefix is ascending (a window of a sorted run), and
+    every slot past it holds the key dtype's max."""
+    keys, src = merge_runs(rk, rvalid)
+    sv = rv.reshape(rk.numel(), *rv.shape[2:]).index_select(0, src)
+    return keys, sv, rvalid.sum(dtype=torch.int32).reshape(1)
 
 
 def _exchange_step(keys, vals, valid, group, capacity: int,

@@ -4,6 +4,7 @@ from sparkrdma_tpu_torch.ops.attention import (
     block_attention_plain,
 )
 from sparkrdma_tpu_torch.ops.exchange import hash_exchange
+from sparkrdma_tpu_torch.ops.merge_kernel import merge_runs, merge_runs_plain
 from sparkrdma_tpu_torch.ops.partition import (
     bucketize_segments,
     hash_partition_ids,
@@ -46,6 +47,8 @@ __all__ = [
     "hash_exchange",
     "hash_partition_ids",
     "make_range_splitters",
+    "merge_runs",
+    "merge_runs_plain",
     "partition_to_buckets",
     "partition_to_buckets_dropping",
     "range_partition_ids",

@@ -23,6 +23,7 @@ from sparkrdma_tpu_torch.models import terasort as tts
 from sparkrdma_tpu_torch.models import topk as ttopk
 from sparkrdma_tpu_torch.models import wordcount as twc
 from sparkrdma_tpu_torch.ops import attention as tattn
+from sparkrdma_tpu_torch.ops import merge_kernel as tmerge
 from sparkrdma_tpu_torch.ops import partition as tpart
 from sparkrdma_tpu_torch.ops import scan_kernels as tscan
 from sparkrdma_tpu_torch.ops import segment as tseg
@@ -367,9 +368,95 @@ def test_kernels_count_their_launches(cuda_device):
     tscan.cumsum_1d(k)
     x = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda_device)
     tattn.block_attention(x, x, x)
+    tmerge.merge_runs(k.reshape(4, 128), torch.full(
+        (4,), 128, dtype=torch.int32, device=cuda_device))
     assert _build.launch_counts() == {
         "flagged_scan": 1, "bitonic_block_sort": 1, "block_attention": 1,
+        "merge_runs": 1,
     }
+
+
+def _merge_block(n_runs, cap, dtype, case, pattern, seed):
+    """A received [D, cap] block on the CPU: row s ascending over its
+    first rvalid[s] slots, the key dtype's max after them.  ``case``
+    sets rvalid (all 0, all cap, or 0, cap and draws in between);
+    ``pattern`` the keys (``dups_extremes`` includes the dtype's max
+    and min among the real keys; ``random`` spans the dtype)."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    if case == "empty":
+        rvalid = np.zeros(n_runs, np.int32)
+    elif case == "full":
+        rvalid = np.full(n_runs, cap, np.int32)
+    else:
+        rvalid = rng.integers(0, cap + 1, n_runs).astype(np.int32)
+        rvalid[0], rvalid[-1] = cap, 0
+    rk = np.full((n_runs, cap), info.max, dtype)
+    for s, n in enumerate(rvalid):
+        if pattern == "random":
+            k = rng.integers(info.min, info.max, n, dtype=dtype,
+                             endpoint=True)
+        else:
+            k = rng.integers(0, 7, n).astype(dtype)
+            k[: n // 8] = rng.choice(np.array([info.max, info.min, 0, -1],
+                                              dtype), n // 8)
+        rk[s, :n] = np.sort(k)
+    return torch.from_numpy(rk), torch.from_numpy(rvalid)
+
+
+def _merge_on_card(rk, rv, rvalid, device):
+    """``merge_runs`` and ``merge_received`` on the card, under
+    ``set_sync_debug_mode("error")``; returns their outputs on the CPU
+    and the kernel's launches."""
+    rk_d, rv_d, rvalid_d = rk.to(device), rv.to(device), rvalid.to(device)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (*tmerge.merge_runs(rk_d, rvalid_d),
+               *tts.merge_received(rk_d, rv_d, rvalid_d))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = _build.launch_counts()["merge_runs"]
+    return [g.cpu() for g in got], launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("case", ["empty", "full", "mixed"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n_runs", [2, 3, 4, 8])
+def test_merge_runs_kernel_matches_plain_on_card(cuda_device, n_runs, dtype,
+                                                 case, wide):
+    """The kernel's (keys, src) against the plain version, and
+    ``merge_received``'s (keys, payload, n_valid) against its CPU run,
+    bit for bit: ``dups_extremes`` keys, 1-D and 23-word payloads."""
+    cap = 5003
+    rk, rvalid = _merge_block(n_runs, cap, dtype, case, "dups_extremes",
+                              n_runs * 7 + len(case))
+    g = torch.Generator().manual_seed(n_runs)
+    rv = torch.randint(-(1 << 31), 1 << 31,
+                       (n_runs, cap, 23) if wide else (n_runs, cap),
+                       generator=g, dtype=torch.int32)
+    want = (*tmerge.merge_runs_plain(rk, rvalid),
+            *tts.merge_received(rk, rv, rvalid))
+    got, launches = _merge_on_card(rk, rv, rvalid, cuda_device)
+    assert launches == 2
+    for gt, w in zip(got, want):
+        assert gt.dtype == w.dtype and torch.equal(gt, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_runs", [4, 8])
+def test_merge_runs_kernel_long_runs_on_card(cuda_device, n_runs):
+    """Runs of about 2^20 random int64 keys: many tiles a pair and
+    co-rank searches of several 32-way steps."""
+    rk, rvalid = _merge_block(n_runs, (1 << 20) + 5, np.int64, "mixed",
+                              "random", n_runs)
+    want = tmerge.merge_runs_plain(rk, rvalid)
+    got, launches = _merge_on_card(rk, rk[:, :, None], rvalid, cuda_device)
+    assert launches == 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 O_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7,

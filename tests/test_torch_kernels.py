@@ -26,6 +26,7 @@ from sparkrdma_tpu.ops.segment import _ff_run_carry, segmented_scan
 from sparkrdma_tpu_torch import _build
 from sparkrdma_tpu_torch.ops import attention as tattn
 from sparkrdma_tpu_torch.ops import lexsort as tlex
+from sparkrdma_tpu_torch.ops import merge_kernel as tmerge
 from sparkrdma_tpu_torch.ops import scan_kernels as tscan
 from sparkrdma_tpu_torch.ops import segment as tseg
 from sparkrdma_tpu_torch.ops import sort_kernel as tsort
@@ -475,8 +476,10 @@ def test_launch_counters_untouched_on_cpu():
     tscan.cumsum_1d(*_t(k))
     x = torch.zeros(64, 64)
     tattn.block_attention(x, x, x)
+    tmerge.merge_runs(*_t(k.reshape(4, 128), np.full(4, 100, np.int32)))
     assert _build.launch_counts() == {
         "flagged_scan": 0, "bitonic_block_sort": 0, "block_attention": 0,
+        "merge_runs": 0,
     }
 
 
