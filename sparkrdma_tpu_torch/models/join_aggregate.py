@@ -9,7 +9,8 @@ one sort serves both stages:
 
   sort (gk, key, role, payload)       # ops/lexsort.py: two stable sorts
   -> forward fill of dimension rows   # the join probe (join.py), kernel 1
-  -> per-run sum/count from two prefix sums and run-end differences
+  -> run ends and heads               # ops/segment.py: run_ends, run_heads
+  -> per-run sum/count                # ops/segment.py: run_totals
   -> per-run min/max by segmented scans (kernel 1's min and max kinds)
 
 The three parts run inside the ranges ``join_aggregate.pack`` (the
@@ -47,10 +48,10 @@ from sparkrdma_tpu_torch.models.join import (
     _probe_fill,
 )
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_group_key_role
-from sparkrdma_tpu_torch.ops.scan_kernels import cumsum_1d
 from sparkrdma_tpu_torch.ops.segment import (
-    _ff_run_carry,
-    _prev_end,
+    run_ends,
+    run_heads,
+    run_totals,
     segmented_scan,
 )
 from sparkrdma_tpu_torch.parallel.group import ExchangeGroup, step_group
@@ -75,14 +76,6 @@ def _hook_view(word: torch.Tensor) -> torch.Tensor:
     if word.dtype == torch.int32:
         return word.to(torch.int64) & _MASK32
     return word
-
-
-def _run_bounds(sgk: torch.Tensor):
-    """(is_last, heads): the group-key runs' last and first slots."""
-    change = sgk[1:] != sgk[:-1]
-    one = torch.ones(min(sgk.shape[0], 1), dtype=torch.bool,
-                     device=sgk.device)
-    return torch.cat([change, one]), torch.cat([one, change])
 
 
 @functools.lru_cache(maxsize=16)
@@ -142,15 +135,11 @@ def _aggregate_runs(sgk, v, found):
     """Run-end (gk, sums, counts, mins, maxs, n_groups[1]) of the
     matched values ``v`` over the group-key runs of ``sgk``."""
     id_min, id_max = _minmax_identities(v.dtype)
-    is_last, heads = _run_bounds(sgk)
-    csum_v = cumsum_1d(torch.where(found, v, 0))
-    csum_m = cumsum_1d(found.to(torch.int32))
-    flag, (fv, fm) = _ff_run_carry(is_last, (csum_v, csum_m))
-    prev_v, prev_m = _prev_end(flag, (fv, fm))
-    counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
+    is_last = run_ends(sgk)
+    heads = run_heads(is_last)
     # the invalid tail never counts: found is 0 there
-    real = counts > 0
-    sums = torch.where(real, csum_v - prev_v, 0).to(v.dtype)
+    sums, counts, real, _flag, _ = run_totals(
+        is_last, torch.where(found, v, 0), found.to(torch.int32))
     mins = segmented_scan(torch.where(found, v, id_min), heads, "min")
     maxs = segmented_scan(torch.where(found, v, id_max), heads, "max")
     mins = torch.where(real, mins, 0).to(v.dtype)

@@ -27,10 +27,11 @@ contract: a run of length ``capacity`` (``D * capacity`` at D > 1)
 padded with the key dtype's max, ``n_valid``, and ``max_fill`` for the
 overflow retry.
 
-At D = 1 the step allocates its outputs at ``capacity`` rows first; the
-sort and the payload gather write straight into their first
-``min(n, capacity)`` rows, and only the tail is filled after them, so
-no sorted row is copied a second time.
+One function, :func:`_sort_rows`, sorts a rank's rows by (key,
+validity) into the outputs its caller gives: :func:`sort_and_sample`'s
+``[n_local]`` rows, or at D = 1 ``capacity`` rows, so that the sort
+and the payload gather write straight into their first ``min(n,
+capacity)`` rows and only the tail is filled after them.
 
 Each stage of a step runs inside its range (``utils/trace.py``):
 ``terasort.local_sort`` (the sort and the payload gather; at D > 1
@@ -70,40 +71,44 @@ from sparkrdma_tpu_torch.parallel.group import step_group
 from sparkrdma_tpu_torch.utils.trace import stage
 
 
-def _sort_into(keys: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Stable sort of ``keys`` whose first ``out.shape[0]`` sorted keys
-    land in ``out``; returns the whole permutation.  With every key
-    kept the sort writes into ``out`` itself; past capacity (``out``
-    shorter than ``keys``) the sorted run is trimmed into it."""
+def _sort_rows(keys, vals, valid, k_out, v_out):
+    """Sort this rank's rows by (key, validity) into the first ``min(n,
+    len(k_out))`` rows of ``k_out`` and ``v_out``.  ``valid`` is int32
+    0/1 or None (every row real); invalid rows get the dtype-max key,
+    so they form the sorted run's tail.  Returns the real rows, int32
+    0-d, or None without ``valid``."""
     n = keys.shape[0]
-    if out.shape[0] == n:
-        perm = torch.empty(n, dtype=torch.int64, device=keys.device)
-        torch.sort(keys, stable=True, out=(out, perm))
-        return perm
-    k, perm = torch.sort(keys, stable=True)
-    out.copy_(k[:out.shape[0]])
-    return perm
-
-
-def sort_and_sample(keys, vals, valid, sample_size: int):
-    """Map side, first half: sort this rank's rows by (key, validity)
-    and take the exact local quantiles ``k[(arange(S) * n) // S]``.
-    ``valid`` is int32 0/1 or None (every row real); invalid rows get
-    the dtype-max key, so validity within the sorted run is a suffix.
-    ``vals`` is ``[n]`` or ``[n, W]`` payload rows.  Returns (k, v,
-    n_real int32 0-d, sample [S])."""
-    n_local = keys.shape[0]
+    m = min(n, k_out.shape[0])
+    k_out = k_out[:m]
     if valid is None:
-        k, perm = torch.sort(keys, stable=True)
-        n_real = torch.full((), n_local, dtype=torch.int32,
-                            device=keys.device)
+        n_real = None
+        if m == n:
+            perm = torch.empty(n, dtype=torch.int64, device=keys.device)
+            torch.sort(keys, stable=True, out=(k_out, perm))
+        else:
+            k, perm = torch.sort(keys, stable=True)
+            k_out.copy_(k[:m])
     else:
         inv = 1 - valid.to(torch.int32)
         keys = torch.where(valid > 0, keys, torch.iinfo(keys.dtype).max)
         perm = perm_by_key_invalid(keys, inv)
-        k = keys[perm]
+        torch.index_select(keys, 0, perm[:m], out=k_out)
         n_real = valid.sum(dtype=torch.int32)
-    v = vals.index_select(0, perm)
+    torch.index_select(vals, 0, perm[:m], out=v_out[:m])
+    return n_real
+
+
+def sort_and_sample(keys, vals, valid, sample_size: int):
+    """Map side, first half: sort this rank's rows by (key, validity)
+    (:func:`_sort_rows`) and take the exact local quantiles
+    ``k[(arange(S) * n) // S]``.  ``vals`` is ``[n]`` or ``[n, W]``
+    payload rows.  Returns (k, v, n_real int32 0-d, sample [S])."""
+    n_local = keys.shape[0]
+    k, v = keys.new_empty(n_local), vals.new_empty(vals.shape)
+    n_real = _sort_rows(keys, vals, valid, k, v)
+    if n_real is None:
+        n_real = torch.full((), n_local, dtype=torch.int32,
+                            device=keys.device)
     at = (torch.arange(sample_size, device=keys.device) * n_local
           ) // sample_size
     return k, v, n_real, k[at]
@@ -181,62 +186,28 @@ def _exchange_step(keys, vals, valid, group, capacity: int,
 def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int,
                      sample_size: int = 1024, group=None):
     """One rank's sort.  ``valid`` is int32 0/1 or None (everything
-    valid, no validity operand).  At D = 1 the sort and the gathers
-    write into the capacity-sized outputs and ``terasort.pad`` fills
-    their tail (module docstring).  Returns (keys' [D * capacity], vals',
+    valid, no validity operand).  At D = 1 :func:`_sort_rows` writes
+    into the capacity-sized outputs and ``terasort.pad`` fills their
+    tail (module docstring).  Returns (keys' [D * capacity], vals',
     n_valid int32[1], max_fill int32[1])."""
     g = step_group(n_devices, group, "TeraSort")
     if g is not None:
         return _exchange_step(keys, vals, valid, g, capacity, sample_size)
     n_local = keys.shape[0]
     m = min(n_local, capacity)
-    sentinel = torch.iinfo(keys.dtype).max
     with stage("terasort.local_sort"):
         k = keys.new_empty(capacity)
         v = vals.new_empty((capacity, *vals.shape[1:]))
-        if valid is None:
-            perm = _sort_into(keys, k[:m])
-            n_real = torch.full((1,), n_local, dtype=torch.int32,
-                                device=keys.device)
-        else:
-            inv = 1 - valid.to(torch.int32)
-            keys = torch.where(valid > 0, keys, sentinel)
-            perm = perm_by_key_invalid(keys, inv)
-            torch.index_select(keys, 0, perm[:m], out=k[:m])
-            n_real = valid.sum(dtype=torch.int32).reshape(1)
-        torch.index_select(vals, 0, perm[:m], out=v[:m])
+        n_real = _sort_rows(keys, vals, valid, k, v)
     with stage("terasort.pad"):
-        k[m:].fill_(sentinel)
+        k[m:].fill_(torch.iinfo(keys.dtype).max)
         v[m:].zero_()
-    n_valid = torch.clamp(n_real, max=capacity)
+    if n_real is None:
+        n_valid = torch.full((1,), m, dtype=torch.int32, device=k.device)
+    else:
+        n_valid = torch.clamp(n_real.reshape(1), max=capacity)
     max_fill = torch.full((1,), n_local, dtype=torch.int32, device=k.device)
     return k, v, n_valid, max_fill
-
-
-def _local_sort_wide_step(keys, payload, n_devices: int, capacity: int,
-                          sample_size: int = 1024, group=None):
-    """Wide-record variant (the HiBench TeraSort shape): the key sort
-    carries a row index, and the payload rows [n, W] follow by row
-    gathers, at D = 1 straight into the capacity-sized outputs.  Returns
-    (keys' [D * capacity], payload' [D * capacity, W], n_valid int32[1],
-    max_fill int32[1])."""
-    g = step_group(n_devices, group, "TeraSort")
-    if g is not None:
-        return _exchange_step(keys, payload, None, g, capacity, sample_size)
-    n_local = keys.shape[0]
-    m = min(n_local, capacity)
-    sentinel = torch.iinfo(keys.dtype).max
-    with stage("terasort.local_sort"):
-        k = keys.new_empty(capacity)
-        p = payload.new_empty((capacity, payload.shape[1]))
-        perm = _sort_into(keys, k[:m])
-        torch.index_select(payload, 0, perm[:m], out=p[:m])
-    with stage("terasort.pad"):
-        k[m:].fill_(sentinel)
-        p[m:].zero_()
-    n_valid = torch.full((1,), m, dtype=torch.int32, device=k.device)
-    max_fill = torch.full((1,), n_local, dtype=torch.int32, device=k.device)
-    return k, p, n_valid, max_fill
 
 
 def _check_rows(what: str, n_local: int, keys) -> None:
@@ -287,8 +258,8 @@ def make_wide_sort_step(n_devices: int, n_local: int, payload_words: int,
         if p.dim() != 2 or p.shape[1] != payload_words:
             raise ValueError(f"payload must be [n, {payload_words}], got "
                              f"{tuple(p.shape)}")
-        return _local_sort_wide_step(k, p, n_devices, capacity, sample_size,
-                                     group)
+        return _local_sort_step(k, p, None, n_devices, capacity,
+                                sample_size, group)
     return step
 
 

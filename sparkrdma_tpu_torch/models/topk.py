@@ -5,8 +5,10 @@ TPC-DS q67-style plans rank rows within each group and keep the top k
 (``row_number() over (partition by key order by value desc) <= k``):
 
   hash exchange (the identity on one device) -> one sort keyed (key,
-  validity, value descending via bitwise complement) -> per-run rank
-  from a run-end forward fill (kernel 1) -> rank < k mask.
+  validity, value descending via bitwise complement) -> per-run rank,
+  each slot's index less its run's first (``ops/segment.py``'s
+  ``run_ends`` and ``prev_run_end``: one launch of kernel 1's fill)
+  -> rank < k mask.
 
 A key lives on one rank after the exchange, so at D > 1 each rank
 returns the final top-k lists of the keys it owns.
@@ -22,22 +24,16 @@ import torch
 from sparkrdma_tpu_torch.models._base import ExchangeModel
 from sparkrdma_tpu_torch.ops.exchange import hash_exchange
 from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_invalid_value
-from sparkrdma_tpu_torch.ops.segment import _ff_run_carry
+from sparkrdma_tpu_torch.ops.segment import prev_run_end, run_ends
 from sparkrdma_tpu_torch.parallel.group import step_group
 
 
 def _rank_in_runs(ks: torch.Tensor, valid_s: torch.Tensor) -> torch.Tensor:
     """Rank of each slot within its (key, validity) run in a sorted
-    layout: its index minus the run's start, the run-end POSITION of the
-    previous run forward-filled through kernel 1 and shifted one slot."""
-    n = ks.shape[0]
-    iota = torch.arange(n, dtype=torch.int32, device=ks.device)
-    bound = (ks[1:] != ks[:-1]) | (valid_s[1:] != valid_s[:-1])
-    head = min(n, 1)
-    is_last = torch.cat([bound, bound.new_ones(head)])
-    flag, (fpos,) = _ff_run_carry(is_last, (iota + 1,))
-    fpos = torch.where(flag, fpos, 0)
-    run_start = torch.cat([fpos.new_zeros(head), fpos[:-1]])
+    layout: its index minus the run's start, which is one past the
+    previous run's end (0 for the first run)."""
+    iota = torch.arange(ks.shape[0], dtype=torch.int32, device=ks.device)
+    _flag, (run_start,) = prev_run_end(run_ends(ks, valid_s), (iota + 1,))
     return iota - run_start
 
 

@@ -1,5 +1,5 @@
-"""Keyed reductions over one device's rows: the port of
-``sparkrdma_tpu/ops/segment.py``.
+"""Keyed reductions over one device's rows, and the run-end layout
+they share: the port of ``sparkrdma_tpu/ops/segment.py``.
 
 Sort the keys once, take prefix sums, and read per-run totals at
 run-end positions through a forward fill.  Results stay at their
@@ -8,6 +8,14 @@ and fill goes through :func:`~sparkrdma_tpu_torch.ops.scan_kernels.
 scan_flagged`, which runs the CUDA kernel on a CUDA tensor and its
 plain version on a CPU tensor.  Sums accumulate in the value dtype and
 wrap on overflow (JVM Int/Long semantics, as in the JAX package).
+
+This module owns the run-end layout.  Its callers (the two reductions
+here, ``models/join_aggregate.py``, ``models/topk.py``) use
+:func:`run_ends` and :func:`run_heads` (the runs' last and first
+slots), :func:`shift` (a column moved one slot), :func:`prev_run_end`
+(each column at the previous run end, by one launch of kernel 1's
+fill) and :func:`run_totals` (per-run sums and counts as differences
+of two prefix sums).
 
 :func:`compact_flagged` packs the rows a predicate keeps (a HAVING
 over the run-end layout, a join's matched rows) into a fixed-capacity
@@ -57,23 +65,60 @@ def _ff_run_carry(is_last: torch.Tensor, columns):
     return scan_flagged("fill", is_last, tuple(columns))
 
 
-def _prev_end(flag: torch.Tensor, cols):
-    """Shift the filled run-end carry right by one: position i sees the
-    latest run end STRICTLY before i (zeros when there is none)."""
-    out = []
-    for c in cols:
-        masked = torch.where(flag, c, torch.zeros((), dtype=c.dtype,
-                                                  device=c.device))
-        out.append(torch.cat([masked.new_zeros(1), masked[:-1]]))
-    return out
+def run_ends(*cols: torch.Tensor) -> torch.Tensor:
+    """The run-end mask of a stream sorted by ``cols``: True where any
+    column changes at the next slot, and on the last slot."""
+    first, *rest = cols
+    bound = first[1:] != first[:-1]
+    for c in rest:
+        bound = bound | (c[1:] != c[:-1])
+    return torch.cat([bound, bound.new_ones(min(first.shape[0], 1))])
+
+
+def run_heads(is_last: torch.Tensor) -> torch.Tensor:
+    """The run-head mask (each run's first slot) from the run-end mask:
+    the last slot always ends a run, so the run ends rotated one slot
+    later are the heads, with no fill."""
+    return torch.cat([is_last[-1:], is_last[:-1]])
+
+
+def shift(x: torch.Tensor, fill, back: bool = False) -> torch.Tensor:
+    """``x`` moved one slot later (``out[i] = x[i - 1]``), or with
+    ``back`` one slot earlier (``out[i] = x[i + 1]``); the slot left
+    free holds ``fill``."""
+    edge = x.new_full((min(x.shape[0], 1),), fill)
+    return torch.cat([x[1:], edge] if back else [edge, x[:-1]])
+
+
+def prev_run_end(is_last: torch.Tensor, cols):
+    """Each column's value at the latest run end strictly before each
+    slot (0 where there is none): one launch of kernel 1's fill from
+    the run ends of ``is_last``, then :func:`shift`.  Returns ``(flag,
+    cols)``, ``flag`` true from the first run end on."""
+    flag, filled = _ff_run_carry(is_last, cols)
+    return flag, [shift(torch.where(flag, c, c.new_zeros(())), 0)
+                  for c in filled]
+
+
+def run_totals(is_last: torch.Tensor, vals: torch.Tensor,
+               marks: torch.Tensor, carry=()):
+    """Sums of ``vals`` and counts of the int32 0/1 ``marks`` at each run
+    end of ``is_last`` (0 elsewhere), and ``real = counts > 0``.  The
+    ``carry`` columns ride the same fill to the previous run end.
+    Returns ``(sums, counts, real, flag, carried)``, ``flag`` and
+    ``carried`` as :func:`prev_run_end` gives them."""
+    csum_v = cumsum_1d(vals)
+    csum_m = cumsum_1d(marks)
+    flag, (prev_v, prev_m, *carried) = prev_run_end(
+        is_last, (csum_v, csum_m, *carry))
+    counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
+    real = counts > 0
+    sums = torch.where(real, csum_v - prev_v, 0).to(vals.dtype)
+    return sums, counts, real, flag, carried
 
 
 def _sentinel(keys: torch.Tensor) -> int:
     return torch.iinfo(keys.dtype).max
-
-
-def _trues(n: int, device) -> torch.Tensor:
-    return torch.ones(n, dtype=torch.bool, device=device)
 
 
 def _gather(perm: torch.Tensor, *cols):
@@ -108,14 +153,7 @@ def reduce_by_key_local(
             ks, inv_s, vs = _gather(perm, keys, inv, vals)
             ms = 1 - inv_s
     with stage("keyed.scan"):
-        csum_v = cumsum_1d(vs)
-        csum_m = cumsum_1d(ms)
-        is_last = torch.cat([ks[1:] != ks[:-1], _trues(1, keys.device)])
-        flag, (fv, fm) = _ff_run_carry(is_last, (csum_v, csum_m))
-        prev_v, prev_m = _prev_end(flag, (fv, fm))
-        counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
-        real = counts > 0
-        sums = torch.where(real, csum_v - prev_v, 0).to(vals.dtype)
+        sums, counts, real, _flag, _ = run_totals(run_ends(ks), vs, ms)
         uniq = torch.where(real, ks, _sentinel(keys))
         n_unique = real.sum(dtype=torch.int32)
     return uniq, sums, counts, n_unique
@@ -150,23 +188,12 @@ def aggregate_by_key_local(
             ks, inv_s, vs = _gather(perm, keys, inv, vals)
             ms = 1 - inv_s
     with stage("keyed.scan"):
-        bound = ks[1:] != ks[:-1]
-        if valid is not None:
-            bound = bound | (inv_s[1:] != inv_s[:-1])
-        csum_v = cumsum_1d(vs)
-        csum_m = cumsum_1d(ms)
-        is_last = torch.cat([bound, _trues(1, keys.device)])
-        vs_next = torch.cat([vs[1:], vs.new_zeros(1)])
-        flag, (fv, fm, fnext) = _ff_run_carry(is_last,
-                                              (csum_v, csum_m, vs_next))
-        prev_v, prev_m, prev_next = _prev_end(flag, (fv, fm, fnext))
-        counts = torch.where(is_last, csum_m - prev_m, 0).to(torch.int32)
-        real = counts > 0
-        sums = torch.where(real, csum_v - prev_v, 0).to(vals.dtype)
+        is_last = run_ends(ks) if valid is None else run_ends(ks, inv_s)
+        sums, counts, real, flag, (prev_next,) = run_totals(
+            is_last, vs, ms, (shift(vs, 0, back=True),))
         maxs = torch.where(real, vs, 0).to(vals.dtype)
         # run 0 has no previous end: its min is the globally first slot
-        had_prev = torch.cat([flag.new_zeros(1), flag[:-1]])
-        mins = torch.where(had_prev, prev_next, vs[:1])
+        mins = torch.where(shift(flag, False), prev_next, vs[:1])
         mins = torch.where(real, mins, 0).to(vals.dtype)
         uniq = torch.where(real, ks, _sentinel(keys))
         n_unique = real.sum(dtype=torch.int32)
