@@ -33,6 +33,13 @@ and float16/bfloat16/float32/float64 values; integer or bool keys);
 other dtypes raise.  The JAX package's ``check_no_silent_truncation`` has no
 counterpart (``models/_base.py``).
 
+The probe's sort packs key and role into one int64 word whenever both
+key columns are at most 4 bytes wide, whatever the transport width
+(``ops/lexsort.py``'s :func:`sort_key_role`), and reads the sorted key
+and role back from that word; only 8-byte key columns sort in two
+passes and gather both.  Each probe adds the rows it sorted to the
+registry's ``join_probe_rows_total{sort=packed|chain}``.
+
 A step's stages run inside the ranges ``join.pack`` (the packed
 stream) and ``join.probe`` (the sort, its gathers, the fill and the
 masks), and at D > 1 ``join.buckets`` (the hash buckets) and the
@@ -49,8 +56,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.metrics import counter
 from sparkrdma_tpu_torch.models._base import ExchangeModel
-from sparkrdma_tpu_torch.ops.lexsort import perm_by_key_role
+from sparkrdma_tpu_torch.ops.lexsort import sort_key_role, unpack_key_role
 from sparkrdma_tpu_torch.ops.partition import (
     hash_partition_ids,
     partition_to_buckets_dropping,
@@ -110,6 +118,12 @@ def _pay_from_u(u: np.ndarray, dtype, width: int) -> np.ndarray:
     return u.astype(dtype)
 
 
+def _key_bytes(lk, rk) -> int:
+    """Byte size of the wider key column: what decides whether the
+    probe's sort packs key and role into one word."""
+    return max(lk.dtype.itemsize, rk.dtype.itemsize)
+
+
 def _pack_sides(lk, lv, l_valid, rk, rv, r_valid):
     """Merge fact and dimension columns into one (key, role, payload)
     stream of transport words (facts first)."""
@@ -137,13 +151,27 @@ def _probe_fill(sk, srole, spay):
     return fval, found
 
 
-def _probe_packed(ku, role, pay):
+def _sorted_key_role(ku, role, word, perm):
+    """The probe stream's key words and roles in sorted order: decoded
+    from the sorted packed ``word``, or gathered through ``perm`` where
+    the key did not pack.  Adds the rows to the probe counter."""
+    counter("join_probe_rows_total",
+            sort="chain" if word is None else "packed").inc(ku.shape[0])
+    if word is None:
+        return ku[perm], role[perm]
+    return unpack_key_role(word, ku.dtype)
+
+
+def _probe_packed(ku, role, pay, key_bytes: int):
     """Sort-merge probe over a packed stream: one sort keyed (key,
-    role), then :func:`_probe_fill`.  Returns ``(keys_u, fact_pay,
-    dim_pay, found, is_fact)``, found = 1 exactly on matched fact rows
-    and dim_pay 0 elsewhere."""
-    perm = perm_by_key_role(ku, role)
-    sk, srole, spay = ku[perm], role[perm], pay[perm]
+    role), then :func:`_probe_fill`.  ``key_bytes`` is the wider key
+    column's byte size (:func:`_key_bytes`).  Returns ``(keys_u,
+    fact_pay, dim_pay, found, is_fact)``, found = 1 exactly on matched
+    fact rows and dim_pay 0 elsewhere."""
+    word, perm = sort_key_role(ku, role, key_bytes)
+    sk, srole = _sorted_key_role(ku, role, word, perm)
+    del word  # 8 B a row, no longer read: freed before the fill
+    spay = pay[perm]
     fval, found_b = _probe_fill(sk, srole, spay)
     fval = torch.where(found_b, fval, 0)
     is_fact = (srole == _ROLE_FACT).to(torch.int32)
@@ -195,7 +223,8 @@ def make_hash_join_step(n_devices: int, n_left: int, n_right: int,
             ku, role, pay, fill = _exchange_packed(ku, role, pay, g,
                                                    capacity)
         with stage("join.probe"):
-            return (*_probe_packed(ku, role, pay), fill)
+            return (*_probe_packed(ku, role, pay, _key_bytes(lk, rk)),
+                    fill)
 
     return step
 
@@ -214,7 +243,7 @@ def make_broadcast_join_step(n_devices: int, n_left: int, n_right_total: int,
         with stage("join.pack"):
             packed = _pack_sides(lk, lv, l_valid, rk, rv, r_valid)
         with stage("join.probe"):
-            return _probe_packed(*packed)
+            return _probe_packed(*packed, _key_bytes(lk, rk))
 
     return step
 

@@ -7,7 +7,7 @@ bucket, a date part), sorting the packed stream by (group key, join
 key, role) groups equal join keys inside contiguous group-key runs, so
 one sort serves both stages:
 
-  sort (gk, key, role, payload)       # ops/lexsort.py: two stable sorts
+  sort (gk, key, role, payload)       # ops/lexsort.py: (key, role), then gk
   -> forward fill of dimension rows   # the join probe (join.py), kernel 1
   -> run ends and heads               # ops/segment.py: run_ends, run_heads
   -> per-run sum/count                # ops/segment.py: run_totals
@@ -43,11 +43,13 @@ from sparkrdma_tpu_torch.models.join import (
     _ROLE_INVALID,
     _as_columns,
     _check_rows,
+    _key_bytes,
     _pack_sides,
     _pad_to,
     _probe_fill,
+    _sorted_key_role,
 )
-from sparkrdma_tpu_torch.ops.lexsort import perm_by_group_key_role
+from sparkrdma_tpu_torch.ops.lexsort import sort_group_key_role
 from sparkrdma_tpu_torch.ops.segment import (
     run_ends,
     run_heads,
@@ -117,8 +119,11 @@ def make_broadcast_join_aggregate_step(
             # group
             gk = torch.where(role != _ROLE_INVALID, gk, -1)
         with stage("join_aggregate.probe"):
-            perm = perm_by_group_key_role(gk, ku, role)
-            sgk, sk, srole, spay = gk[perm], ku[perm], role[perm], pay[perm]
+            sgk, word, perm = sort_group_key_role(gk, ku, role,
+                                                  _key_bytes(lk, rk))
+            sk, srole = _sorted_key_role(ku, role, word, perm)
+            del word  # 8 B a row, no longer read: freed before the fill
+            spay = pay[perm]
             dim_val, found = _probe_fill(sk, srole, spay)
             if agg_val_fn is None:
                 v = dim_val

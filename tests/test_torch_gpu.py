@@ -231,6 +231,21 @@ def test_join_steps_match_cpu_on_card(cuda_device, kind):
     _same_on_card_and_cpu(step, cols, cuda_device, 1)
 
 
+@pytest.mark.gpu
+def test_hash_join_step_of_int32_keys_in_8_byte_words_on_card(cuda_device):
+    """Query 55's date join: int32 keys, negatives among them, ride
+    8-byte words beside an int64 payload, so the probe sorts the packed
+    word with its extension bit and decodes the key from it."""
+    rng = np.random.default_rng(4)
+    cols = _sql_cols(4, 1 << 11, 1 << 12)
+    shift = np.int32(1 << 11)
+    cols[0], cols[3] = cols[0] - shift, cols[3] - shift
+    cols[1] = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, SQL_N))
+    step = tjoin.make_hash_join_step(1, SQL_N, 1 << 11, 0)
+    assert tjoin._pack_sides(*cols)[0].dtype == torch.int64
+    _same_on_card_and_cpu(step, cols, cuda_device, 1)
+
+
 def _gk1024(ku):
     return ku % 1024
 
