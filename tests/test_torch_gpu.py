@@ -19,6 +19,7 @@ import torch
 from sparkrdma_tpu_torch import _build
 from sparkrdma_tpu_torch.models import join as tjoin
 from sparkrdma_tpu_torch.models import join_aggregate as tja
+from sparkrdma_tpu_torch.models import rollup as trollup
 from sparkrdma_tpu_torch.models import terasort as tts
 from sparkrdma_tpu_torch.models import topk as ttopk
 from sparkrdma_tpu_torch.models import wordcount as twc
@@ -274,6 +275,120 @@ def test_topk_step_matches_cpu_on_card(cuda_device):
         (rng.random(SQL_N) < 0.9).astype(np.int32))]
     step = ttopk.make_topk_step(1, SQL_N, SQL_N, 100)
     _same_on_card_and_cpu(step, cols, cuda_device, 1)
+
+
+@pytest.mark.gpu
+def test_topk_rank_step_matches_cpu_on_card(cuda_device):
+    """``ties="rank"``: int64 values with many ties, a payload riding
+    the sort; two fills."""
+    rng = np.random.default_rng(4)
+    valid = (rng.random(SQL_N) < 0.9).astype(np.int32)
+    cols = [torch.from_numpy(c) for c in (
+        np.where(valid > 0, rng.integers(0, 5000, SQL_N, dtype=np.int32),
+                 I32.max).astype(np.int32),
+        rng.integers(-50, 50, SQL_N, dtype=np.int64), valid,
+        np.arange(SQL_N, dtype=np.int32))]
+    step = ttopk.make_topk_step(1, SQL_N, SQL_N, 100, ties="rank")
+    _same_on_card_and_cpu(step, cols, cuda_device, 2)
+
+
+Q67_BITS = [4, 5, 4, 18, 8, 3, 4, 8]
+
+
+def _q67_finest(n, seed):
+    """Distinct ascending keys of query 67's 8 field widths, of few
+    values in the top fields, and int64 sums."""
+    g = torch.Generator().manual_seed(seed)
+    key = torch.zeros(n, dtype=torch.int64)
+    for b in Q67_BITS:
+        key = (key << b) | torch.randint(0, min(1 << b, 12), (n,),
+                                         generator=g)
+    keys = torch.unique(key)
+    return keys, torch.randint(0, 1 << 40, keys.shape, generator=g)
+
+
+@pytest.mark.gpu
+def test_rollup_step_matches_cpu_without_sync_on_card(cuda_device):
+    """The grouping-sets operator on the card: bit-exact with the CPU,
+    a cumsum per coarser level and one of the sums (9 launches), and no
+    host synchronisation once its bounds are on the card."""
+    keys, sums = _q67_finest(1 << 17, 12)
+    slots = keys.shape[0] + 1000
+    k = torch.cat([keys, torch.full((1000,), trollup.KEY_FILL)])
+    s = torch.cat([sums, torch.zeros(1000, dtype=torch.int64)])
+    count = torch.tensor([keys.shape[0]], dtype=torch.int32)
+    step = trollup.make_rollup_step(slots, 2 * slots, Q67_BITS)
+    want = step(k, s, count)
+    args = [x.to(cuda_device) for x in (k, s, count)]
+    step(*args)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launch_counts()["flagged_scan"] == 9
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert int(want[3][0]) > keys.shape[0]
+
+
+@pytest.mark.gpu
+def test_q67_step_on_card_ranges_counters_no_sync(cuda_device):
+    """Query 67's step (``shufflebench`` driver, 2^15 fact rows) on the
+    card: judged exact against the plain reference (tables made on the
+    card from the seed), every level of the rollup too, no host
+    synchronisation, its stage ranges in order and the row counters
+    (the levels' rows counted where ``info`` reads them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shufflebench import common
+    from shufflebench.tests.test_shufflebench_tpcds67 import WIDE
+    from sparkrdma_tpu_torch.metrics import GLOBAL_REGISTRY
+    from sparkrdma_tpu_torch.utils import trace as T
+
+    config = dict(common.data("configs", "tpcds_sf100_q67"), **WIDE)
+    driver = common.module("drivers", "tpcds_sf100_q67")
+    ref = common.module("reference", "tpcds_sf100_q67")
+    seed = 2 ** 31 + 67
+    job = driver.Job(config, seed, 0, 1, None, cuda_device)
+    for factor in job.factors:
+        job.use_factor(factor)
+        if not job.overflowed(job.step()):
+            break
+    torch.cuda.synchronize()
+    GLOBAL_REGISTRY.reset()
+    GLOBAL_REGISTRY.enabled = True
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                out = job.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        levels = [int(x) for x in job.info()["level_rows"].split(",")]
+    finally:
+        GLOBAL_REGISTRY.enabled = False
+    snap = GLOBAL_REGISTRY.snapshot()["counters"]
+    GLOBAL_REGISTRY.reset()
+    assert not job.overflowed(out)
+    assert ref.judge(config, seed, 1, 0, out, 0, cuda_device) == {
+        "rows_wrong": 0, "count_gap": 0, "rollup_rows_wrong": 0}
+    names = [(e.time_range.start, e.name) for e in prof.events()
+             if e.name.startswith(T.RANGE_PREFIX)]
+    assert [n[len(T.RANGE_PREFIX):] for _t, n in sorted(names)] == [
+        "join.pack", "join.probe", "keyed.compact", "join.pack",
+        "join.probe", "join.pack", "join.probe", "keyed.sort",
+        "keyed.scan", "keyed.compact", "rollup", "topk.sort", "topk.rank",
+        "keyed.compact"]
+    got = {(c["name"], tuple(sorted(c["labels"].items()))): c["value"]
+           for c in snap if c["name"] in ("rollup_rows_total",
+                                          "topk_rows_total")}
+    want = {("rollup_rows_total", (("level", str(lv)),)): n
+            for lv, n in enumerate(levels)}
+    want[("topk_rows_total", (("ties", "rank"),))] = job.rollup_rows
+    assert got == want
 
 
 STAGE_RANKS = 8

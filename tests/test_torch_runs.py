@@ -17,6 +17,7 @@ from sparkrdma_tpu_torch.models.join import make_hash_join_step
 from sparkrdma_tpu_torch.models.join_aggregate import (
     make_broadcast_join_aggregate_step,
 )
+from sparkrdma_tpu_torch.models.rollup import make_rollup_step
 from sparkrdma_tpu_torch.models.topk import make_topk_step
 from sparkrdma_tpu_torch.ops import scan_kernels
 from sparkrdma_tpu_torch.ops.segment import (
@@ -60,6 +61,15 @@ def _by_key(key_u):
     return key_u
 
 
+def _rollup():
+    """Distinct ascending keys of four fields and their sums."""
+    keys = torch.unique(torch.randint(0, 1 << 12, (N,),
+                                      generator=torch.Generator().manual_seed(9)))
+    step = make_rollup_step(keys.shape[0], 4 * N, [3, 2, 4, 3])
+    return step(keys, keys * 3, torch.tensor([keys.shape[0]],
+                                             dtype=torch.int32))
+
+
 STEPS = {
     "reduce": lambda: reduce_by_key_local(*_keyed(False)),
     "reduce_valid": lambda: reduce_by_key_local(*_keyed(True)),
@@ -70,6 +80,9 @@ STEPS = {
     "hash_join": lambda: make_hash_join_step(1, N, N_DIM, 2 * N)(
         *_join_cols()),
     "topk": lambda: make_topk_step(1, N, N, 3)(*_keyed(True)),
+    "topk_rank": lambda: make_topk_step(1, N, N, 3, ties="rank")(
+        *_keyed(True)),
+    "rollup": _rollup,
 }
 
 # the passes of one step by kind: "add" with no segment heads is a
@@ -82,6 +95,8 @@ PASSES = {
     "join_aggregate": {"add": 2, "fill": 2, "min": 1, "max": 1},
     "hash_join": {"fill": 1},
     "topk": {"fill": 1},
+    "topk_rank": {"fill": 2},
+    "rollup": {"add": 5},
 }
 
 
