@@ -3112,9 +3112,9 @@ def _terasort_stages(torch, ts, part, keys, vals):
     sample = min(1024, n)
 
     def map_side():
-        k, v, n_real, smp = ts.sort_and_sample(keys, vals, None, sample)
+        k, perm, n_real, smp = ts.sort_and_sample(keys, None, sample)
         splitters = part.make_range_splitters(smp, STAGE_RANKS)
-        return ts.fill_windows(k, v, n_real, splitters, cap)
+        return ts.fill_windows(k, perm, vals, n_real, splitters, cap)
 
     bk, bv, valid_counts, counts = map_side()
     require(int(counts.max()) <= cap, "a window overflowed its capacity")

@@ -6,20 +6,22 @@ At D > 1 every rank runs one step on its own shard
     local sort -> exact-quantile sample -> all_gather -> splitters
     -> contiguous destination windows -> all_to_all -> merge
 
-Each rank sorts its local pairs first, so the sample is an exact local
+Each rank sorts its local keys first, so the sample is an exact local
 quantile sketch and the destination windows are contiguous runs of the
-sorted arrays: one gather of ``starts[:, None] + arange(capacity)``
-fills the ``[D, capacity]`` send block, with no per-destination loop
-and no read of ``starts`` on the host.  The windows move with three
-``all_to_all``s (keys, values, per-source valid counts) and the received
-sorted runs are merged by :func:`~sparkrdma_tpu_torch.ops.merge_kernel.
-merge_runs` (a merge-path kernel on the card), whose source slots gather
-the payload rows once.  The step
-is factored into its rank-local halves, :func:`sort_and_sample` and
-:func:`fill_windows` on the map side and :func:`merge_received` on the
-reduce side, which run on one device as they run in a rank of a group.
-Rank r's output is its sorted run; the runs concatenated in rank order
-are the global sort.
+sorted keys: one gather of ``starts[:, None] + arange(capacity)``
+fills the ``[D, capacity]`` send block's keys and, through the sort's
+permutation, the source rows of its payload, with no per-destination
+loop and no read of ``starts`` on the host.  The payload rows move once
+on the map side, from the unsorted rows straight into the send block.
+The windows move with three ``all_to_all``s (keys, values,
+per-source valid counts) and the received sorted runs are merged by
+:func:`~sparkrdma_tpu_torch.ops.merge_kernel.merge_runs` (a merge-path
+kernel on the card), whose source slots gather the payload rows once.
+The step is factored into its rank-local halves, :func:`sort_and_sample`
+and :func:`fill_windows` on the map side and :func:`merge_received` on
+the reduce side, which run on one device as they run in a rank of a
+group.  Rank r's output is its sorted run; the runs concatenated in
+rank order are the global sort.
 
 At D = 1 a distributed sort IS the local sort, so sampling, windowing,
 the all_to_all and the merge are skipped.  Both keep the output
@@ -27,15 +29,19 @@ contract: a run of length ``capacity`` (``D * capacity`` at D > 1)
 padded with the key dtype's max, ``n_valid``, and ``max_fill`` for the
 overflow retry.
 
-One function, :func:`_sort_rows`, sorts a rank's rows by (key,
-validity) into the outputs its caller gives: :func:`sort_and_sample`'s
-``[n_local]`` rows, or at D = 1 ``capacity`` rows, so that the sort
-and the payload gather write straight into their first ``min(n,
-capacity)`` rows and only the tail is filled after them.
+One function, :func:`_sort_keys`, sorts a rank's keys by (key,
+validity) into the output its caller gives and returns the sort's
+permutation: :func:`sort_and_sample`'s ``[n_local]`` keys, or at D = 1
+``capacity`` keys, so that the sort and the D = 1 payload gather write
+straight into their first ``min(n, capacity)`` rows and only the tail
+is filled after them.  The registry's
+``terasort_payload_rows_total{stage=local_sort|fill_windows|merge}``
+counts the payload rows each stage gathers (``local_sort`` at D = 1
+only), from shapes on the host.
 
 Each stage of a step runs inside its range (``utils/trace.py``):
-``terasort.local_sort`` (the sort and the payload gather; at D > 1
-:func:`sort_and_sample`), ``terasort.pad`` (at D = 1 the fill of the
+``terasort.local_sort`` (the sort, and at D = 1 the payload gather;
+at D > 1 :func:`sort_and_sample`), ``terasort.pad`` (at D = 1 the fill of the
 outputs' tail past the sorted rows), and at D > 1
 ``terasort.splitters`` (the sample's all_gather and the splitters),
 ``terasort.fill_windows`` and ``terasort.merge``; the all_to_alls run
@@ -56,6 +62,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.metrics import counter
 from sparkrdma_tpu_torch.models._base import (
     ExchangeModel,
     as_tensor,
@@ -71,12 +78,12 @@ from sparkrdma_tpu_torch.parallel.group import step_group
 from sparkrdma_tpu_torch.utils.trace import stage
 
 
-def _sort_rows(keys, vals, valid, k_out, v_out):
-    """Sort this rank's rows by (key, validity) into the first ``min(n,
-    len(k_out))`` rows of ``k_out`` and ``v_out``.  ``valid`` is int32
-    0/1 or None (every row real); invalid rows get the dtype-max key,
-    so they form the sorted run's tail.  Returns the real rows, int32
-    0-d, or None without ``valid``."""
+def _sort_keys(keys, valid, k_out):
+    """Sort this rank's keys by (key, validity) into the first ``min(n,
+    len(k_out))`` rows of ``k_out``.  ``valid`` is int32 0/1 or None
+    (every row real); invalid rows get the dtype-max key, so they form
+    the sorted run's tail.  Returns (perm int64 [n], the real rows int32
+    0-d or None without ``valid``)."""
     n = keys.shape[0]
     m = min(n, k_out.shape[0])
     k_out = k_out[:m]
@@ -94,34 +101,36 @@ def _sort_rows(keys, vals, valid, k_out, v_out):
         perm = perm_by_key_invalid(keys, inv)
         torch.index_select(keys, 0, perm[:m], out=k_out)
         n_real = valid.sum(dtype=torch.int32)
-    torch.index_select(vals, 0, perm[:m], out=v_out[:m])
-    return n_real
+    return perm, n_real
 
 
-def sort_and_sample(keys, vals, valid, sample_size: int):
-    """Map side, first half: sort this rank's rows by (key, validity)
-    (:func:`_sort_rows`) and take the exact local quantiles
-    ``k[(arange(S) * n) // S]``.  ``vals`` is ``[n]`` or ``[n, W]``
-    payload rows.  Returns (k, v, n_real int32 0-d, sample [S])."""
+def sort_and_sample(keys, valid, sample_size: int):
+    """Map side, first half: sort this rank's keys by (key, validity)
+    (:func:`_sort_keys`) and take the exact local quantiles
+    ``k[(arange(S) * n) // S]``.  No payload moves here.  Returns (k,
+    perm int64 [n], n_real int32 0-d, sample [S])."""
     n_local = keys.shape[0]
-    k, v = keys.new_empty(n_local), vals.new_empty(vals.shape)
-    n_real = _sort_rows(keys, vals, valid, k, v)
+    k = keys.new_empty(n_local)
+    perm, n_real = _sort_keys(keys, valid, k)
     if n_real is None:
         n_real = torch.full((), n_local, dtype=torch.int32,
                             device=keys.device)
     at = (torch.arange(sample_size, device=keys.device) * n_local
           ) // sample_size
-    return k, v, n_real, k[at]
+    return k, perm, n_real, k[at]
 
 
-def fill_windows(k, v, n_real, splitters, capacity: int):
+def fill_windows(k, perm, vals, n_real, splitters, capacity: int):
     """Map side, second half: destination p gets the keys in
     ``[splitters[p-1], splitters[p])``, a contiguous window of the
-    sorted run, found by ``searchsorted(right=True)``.  One gather of
-    ``starts[:, None] + arange(capacity)`` (clamped to the run) fills
-    the send block; slots past a window's count hold (dtype max, 0), and
-    payload rows there are left as gathered.  Returns (keys [D, cap],
-    vals [D, cap(, W)], valid counts int32 [D], true counts int32 [D])."""
+    sorted keys ``k``, found by ``searchsorted(right=True)``.  One
+    gather of ``starts[:, None] + arange(capacity)`` gives the send
+    block's keys and, through ``perm``, the source rows of its payload,
+    which one ``index_select`` reads straight from the unsorted
+    ``vals`` (``[n]`` or ``[n, W]``).  Slots past a window's count hold
+    the key dtype's max; their payload rows all read one fixed source
+    row (0 where ``vals`` is 1-D).  Returns (keys [D, cap], vals [D,
+    cap(, W)], valid counts int32 [D], true counts int32 [D])."""
     n_local = k.shape[0]
     dev = k.device
     n_parts = splitters.shape[0] + 1
@@ -137,11 +146,14 @@ def fill_windows(k, v, n_real, splitters, capacity: int):
                     - starts).clamp(0, capacity)
     slot = torch.arange(capacity, device=dev)
     window_valid = slot[None, :] < counts.clamp(max=capacity)[:, None]
-    at = (starts[:, None] + slot[None, :]).clamp(max=n_local - 1)
+    # every padding slot reads sorted row 0, so one source row serves all
+    at = torch.where(window_valid, starts[:, None] + slot[None, :], 0)
     bk = torch.where(window_valid, k[at], torch.iinfo(k.dtype).max)
-    bv = v.index_select(0, at.reshape(-1)).reshape(
-        n_parts, capacity, *v.shape[1:])
-    if v.dim() == 1:
+    counter("terasort_payload_rows_total",
+            stage="fill_windows").inc(n_parts * capacity)
+    bv = vals.index_select(0, perm[at].reshape(-1)).reshape(
+        n_parts, capacity, *vals.shape[1:])
+    if vals.dim() == 1:
         bv = torch.where(window_valid, bv, 0)
     return bk, bv, valid_counts.to(torch.int32), counts.to(torch.int32)
 
@@ -160,6 +172,7 @@ def merge_received(rk, rv, rvalid):
     row's valid prefix is ascending (a window of a sorted run), and
     every slot past it holds the key dtype's max."""
     keys, src = merge_runs(rk, rvalid)
+    counter("terasort_payload_rows_total", stage="merge").inc(rk.numel())
     sv = rv.reshape(rk.numel(), *rv.shape[2:]).index_select(0, src)
     return keys, sv, rvalid.sum(dtype=torch.int32).reshape(1)
 
@@ -168,14 +181,13 @@ def _exchange_step(keys, vals, valid, group, capacity: int,
                    sample_size: int):
     """One rank's step at D > 1 (module docstring)."""
     with stage("terasort.local_sort"):
-        k, v, n_real, sample = sort_and_sample(keys, vals, valid,
-                                               sample_size)
+        k, perm, n_real, sample = sort_and_sample(keys, valid, sample_size)
     with stage("terasort.splitters"):
         splitters = make_range_splitters(
             group.all_gather(sample).reshape(-1), group.size)
     with stage("terasort.fill_windows"):
-        bk, bv, valid_counts, counts = fill_windows(k, v, n_real, splitters,
-                                                    capacity)
+        bk, bv, valid_counts, counts = fill_windows(k, perm, vals, n_real,
+                                                    splitters, capacity)
     rk, rv = group.all_to_all(bk), group.all_to_all(bv)
     rvalid = group.all_to_all(valid_counts.reshape(-1, 1)).reshape(-1)
     with stage("terasort.merge"):
@@ -186,10 +198,11 @@ def _exchange_step(keys, vals, valid, group, capacity: int,
 def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int,
                      sample_size: int = 1024, group=None):
     """One rank's sort.  ``valid`` is int32 0/1 or None (everything
-    valid, no validity operand).  At D = 1 :func:`_sort_rows` writes
-    into the capacity-sized outputs and ``terasort.pad`` fills their
-    tail (module docstring).  Returns (keys' [D * capacity], vals',
-    n_valid int32[1], max_fill int32[1])."""
+    valid, no validity operand).  At D = 1 :func:`_sort_keys` and the
+    payload gather write into the capacity-sized outputs and
+    ``terasort.pad`` fills their tail (module docstring).  Returns
+    (keys' [D * capacity], vals', n_valid int32[1], max_fill
+    int32[1])."""
     g = step_group(n_devices, group, "TeraSort")
     if g is not None:
         return _exchange_step(keys, vals, valid, g, capacity, sample_size)
@@ -198,7 +211,9 @@ def _local_sort_step(keys, vals, valid, n_devices: int, capacity: int,
     with stage("terasort.local_sort"):
         k = keys.new_empty(capacity)
         v = vals.new_empty((capacity, *vals.shape[1:]))
-        n_real = _sort_rows(keys, vals, valid, k, v)
+        perm, n_real = _sort_keys(keys, valid, k)
+        counter("terasort_payload_rows_total", stage="local_sort").inc(m)
+        torch.index_select(vals, 0, perm[:m], out=v[:m])
     with stage("terasort.pad"):
         k[m:].fill_(torch.iinfo(keys.dtype).max)
         v[m:].zero_()

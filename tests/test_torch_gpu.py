@@ -400,11 +400,11 @@ def _terasort_stages(keys, vals, valid, device):
     itself, every intermediate kept."""
     k, v = torch.from_numpy(keys).to(device), torch.from_numpy(vals).to(device)
     m = None if valid is None else torch.from_numpy(valid).to(device)
-    sk, sv, n_real, sample = tts.sort_and_sample(k, v, m, 1024)
+    sk, perm, n_real, sample = tts.sort_and_sample(k, m, 1024)
     splitters = tpart.make_range_splitters(sample, STAGE_RANKS)
-    bk, bv, vc, counts = tts.fill_windows(sk, sv, n_real, splitters,
+    bk, bv, vc, counts = tts.fill_windows(sk, perm, v, n_real, splitters,
                                           keys.shape[0])
-    return (sk, sv, n_real, sample, splitters, bk, bv, vc, counts,
+    return (sk, perm, n_real, sample, splitters, bk, bv, vc, counts,
             *tts.merge_received(bk, bv, vc))
 
 
